@@ -5,25 +5,41 @@
 
 Phases, each of which exits non-zero on failure:
 
-1. build every CUDA kernel of the main path with ``nvcc`` (sm_90a);
-2. hold each kernel bit-exact against its plain PyTorch version on the card:
+1. build every CUDA kernel of the main paths with ``nvcc`` (sm_90a), all
+   sources at once: ``permute_step`` (K1) and ``ssd_scan`` (K3);
+2. hold K1 bit-exact against its plain PyTorch version on the card:
    random tables with every edge case, float32 and bfloat16 payloads, and a
    buffer over 2**31 bytes;
-3. the main path: ``repro_torch.api.compile(mesh2d(16, 16)).executable(
+3. the broadcast path: ``repro_torch.api.compile(mesh2d(16, 16)).executable(
    root=0, nbytes=16 MiB)`` on cuda -- 256 virtual devices, verified bit-exact
-   on every device, with the kernel's launch count equal to d x cycles;
-4. small cases (ring 8, hypercube 3; bbs and bine_tree; roots 0 and 3;
+   on every device, with K1's launch count equal to d x cycles;
+4. small broadcasts (ring 8, hypercube 3; bbs and bine_tree; roots 0 and 3;
    bfloat16) on the card, each verified and held against the CPU run;
-5. timing at the main-path shape: the kernel per launch (a CUDA graph of the
+5. K1's timing at the broadcast's shape: per launch (a CUDA graph of the
    whole cycle loop, so host launch cost is left out), its bound (bytes
    moved over the card's memory rate), the plain version and the
-   ``index_select``/``index_copy_`` yardstick.
+   ``index_select``/``index_copy_`` yardstick;
+6. hold K3 against its plain version (``ssd_chunked``) on the card: the
+   Mamba-2 370M prefill shape in bf16, a ragged sequence, float32, the
+   overflow regime (dt = 2, A = -1, where a multiplied mask gives NaN), and
+   chunk invariance;
+7. the serving path of Mamba-2 370M at full width (48 layers, random
+   weights from seed 0): ``LM.prefill`` of 4 x 2048 ``SyntheticTokens`` with
+   exactly one K3 launch per layer, finite logits, held against a prefill
+   through the plain SSD; teacher-forced ``decode_step`` against
+   ``forward`` over 4 x 256 tokens, in bf16 and in float32; and
+   ``serve.main`` to (4, 32) greedy tokens;
+8. K3's timing at the prefill shape (its bound, the plain version), prefill
+   and decode times, serve's tokens/s and the prefill's peak memory; then
+   a ``torch.profiler`` window over one prefill and over four decode steps
+   (the device's busy share and kernel time by kind).
 
 The last lines are the card (``nvidia-smi`` name and power limit), one JSON
-line per kernel, and ``{"ok": true, "device": {...}}``. Without a GPU, or
-without the repo beside it, it exits non-zero and prints no result.
+line with every kernel, and ``{"ok": true, "device": {...}}``. Without a
+GPU, or without the repo beside it, it exits non-zero and prints no result.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -35,6 +51,11 @@ SRC = os.path.join(ROOT, "src")
 MAIN_NBYTES = 16 << 20
 # HBM rates of the SXM data sheets (bytes/s), by the name nvidia-smi reports
 MEM_RATE = (("H200", 4.8e12), ("H100", 3.35e12))
+BF16_PEAK = 989e12        # dense bf16 tensor-core FLOP/s (H100/H200 SXM)
+# the Mamba-2 370M prefill: batch, sequence, heads, head dim, state, chunk
+SSD_MAIN = (4, 2048, 32, 64, 128, 128)
+BF16_TOL, F32_TOL, CHUNK_TOL = 2e-2, 3e-5, 1e-4   # tests/test_kernels.py
+F32_MODEL_TOL = 1e-3      # float32 logits at full depth
 
 
 def log(msg):
@@ -76,11 +97,14 @@ def cuda_ms(fn):
 def phase_build():
     from repro_torch import nvcc
     t0 = time.perf_counter()
-    nvcc.build(["permute_step"])
-    log(f"[build] permute_step built in {time.perf_counter() - t0:.3f} s")
-    for line in nvcc.build_log("permute_step").splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build]   {line.strip()}")
+    names = ["permute_step", "ssd_scan"]
+    nvcc.build(names)
+    log(f"[build] {', '.join(names)} built in "
+        f"{time.perf_counter() - t0:.3f} s")
+    for name in names:
+        for line in nvcc.build_log(name).splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build]   {name}: {line.strip()}")
 
 
 def max_byte_diff(torch, a, b):
@@ -265,6 +289,302 @@ def phase_timing(np, torch, rs, runner, ex, x, lay, rate):
                 launches_timed=nl)
 
 
+def ssd_inputs(torch, b, s, h, dh, ds, dtype, seed, dt_value=None, a=None):
+    """SSD inputs on the card, from a seed: x, B, C in ``dtype``, dt float32
+    (softplus of a normal, times 0.1, as the reference's kernel sweep; or a
+    constant), A = -exp(normal) (or a constant)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(b, s, h, dh, device="cuda", generator=g).to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn(b, s, h, device="cuda", generator=g)) * 0.1
+    if dt_value is not None:
+        dt = torch.full_like(dt, dt_value)
+    A = -torch.exp(torch.randn(h, device="cuda", generator=g))
+    if a is not None:
+        A = torch.full_like(A, a)
+    B = torch.randn(b, s, h, ds, device="cuda", generator=g).to(dtype)
+    C = torch.randn(b, s, h, ds, device="cuda", generator=g).to(dtype)
+    return x, dt, A, B, C
+
+
+def compare(torch, got, want, tol, what, quiet=False):
+    """Fails unless |got - want| <= tol + tol |want| everywhere (and both
+    are finite); returns the largest |got - want|."""
+    got, want = got.float(), want.float()
+    if not torch.isfinite(got).all():
+        fail(f"{what}: non-finite values")
+    err = (got - want).abs()
+    worst = float(err.max())
+    bad = int((err > tol + tol * want.abs()).sum())
+    if not quiet:
+        log(f"[ssd] {what}: max_abs_err {worst!r} (max |want| "
+            f"{float(want.abs().max())!r}, tolerance {tol} abs + {tol} rel)")
+    if bad:
+        fail(f"{what}: {bad} values outside the tolerance "
+             f"(max_abs_err {worst!r})")
+    return worst
+
+
+def phase_ssd_vs_plain(torch, K, ref):
+    """K3 against its plain version on the card. Returns the max abs error
+    at the prefill shape (bf16)."""
+    b, s, h, dh, ds, chunk = SSD_MAIN
+    bf, f32 = torch.bfloat16, torch.float32
+    args = ssd_inputs(torch, b, s, h, dh, ds, bf, 1)
+    main_err = compare(torch, K.ssd_scan(*args, chunk=chunk),
+                       ref.ssd_chunked(*args, chunk=chunk), BF16_TOL,
+                       f"prefill shape {SSD_MAIN} bf16")
+    args = ssd_inputs(torch, b, 2000, h, dh, ds, bf, 2)
+    compare(torch, K.ssd_scan(*args, chunk=chunk),
+            ref.ssd_chunked(*args, chunk=chunk), BF16_TOL,
+            "ragged s=2000 bf16")
+    args = ssd_inputs(torch, b, s, h, dh, ds, f32, 3)
+    compare(torch, K.ssd_scan(*args, chunk=chunk),
+            ref.ssd_chunked(*args, chunk=chunk), F32_TOL,
+            f"prefill shape {SSD_MAIN} float32")
+    for dtype, tol in ((f32, F32_TOL), (bf, BF16_TOL)):
+        args = ssd_inputs(torch, 2, 256, 4, dh, ds, dtype, 4, dt_value=2.0,
+                          a=-1.0)
+        got = K.ssd_scan(*args, chunk=chunk)
+        compare(torch, got, ref.ssd_chunked(*args, chunk=chunk), tol,
+                f"overflow dt=2 A=-1 s=256 {dtype} vs plain")
+        compare(torch, got, ref.ssd_ref(*args), tol,
+                f"overflow dt=2 A=-1 s=256 {dtype} vs sequential scan")
+    args = ssd_inputs(torch, 1, 128, 2, 32, 16, f32, 5)
+    outs = [K.ssd_scan(*args, chunk=c) for c in (16, 32, 64, 128)]
+    for c, o in zip((32, 64, 128), outs[1:]):
+        compare(torch, o, outs[0], CHUNK_TOL, f"chunk {c} vs chunk 16")
+    torch.cuda.synchronize()
+    return main_err
+
+
+def logits_err(torch, got, want, what, tol=None, bound=None):
+    """Max |got - want| over (B, S, V) logits, one batch row at a time, and
+    the share of positions with the same top-1 token. Fails on non-finite
+    logits, outside ``tol`` abs + ``tol`` rel elementwise, or past an
+    absolute ``bound`` on the max."""
+    worst, bad, agree = 0.0, 0, 0
+    for i in range(got.shape[0]):
+        g, w = got[i].float(), want[i].float()
+        if not torch.isfinite(g).all():
+            fail(f"{what}: non-finite logits")
+        err = (g - w).abs()
+        worst = max(worst, float(err.max()))
+        if tol is not None:
+            bad += int((err > tol + tol * w.abs()).sum())
+        agree += int((g.argmax(-1) == w.argmax(-1)).sum())
+    share = agree / (got.shape[0] * got.shape[1])
+    rule = (f"tolerance {tol} abs + {tol} rel" if tol is not None else
+            f"bound {bound!r}" if bound is not None else "a yardstick")
+    log(f"[lm] {what}: max_abs_err {worst!r}, top-1 agreement {share!r} "
+        f"({rule})")
+    if bad or (bound is not None and worst > bound):
+        fail(f"{what}: outside the {rule}")
+    return worst
+
+
+@contextlib.contextmanager
+def ssd_as(ops, fn):
+    """Within the block the model's SSD is ``fn``; yields the real one."""
+    real = ops.ssd
+    ops.ssd = fn
+    try:
+        yield real
+    finally:
+        ops.ssd = real
+
+
+def phase_prefill(torch, K, rs, ref, ops, cfg, LM, SyntheticTokens):
+    """The serving path's prefill at full width. bf16 rounding grows with
+    depth (48 layers of random weights), so K3 is held to its plain version
+    three ways: on every layer's real inputs (the bf16 kernel tolerance), on
+    the whole prefill in float32 (same weights, F32_MODEL_TOL), and on the
+    whole prefill in bf16 within twice bf16's own distance from float32.
+    Returns the bf16 model, its float32 twin and the numbers."""
+    b, s = SSD_MAIN[:2]
+    model = LM(cfg)
+    batch = SyntheticTokens(cfg, seq_len=s, global_batch=b).batch(0)
+    cache = model.init_cache(b, s)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.launches = rs.launches = 0
+    logits, cache = model.prefill(batch, cache)
+    torch.cuda.synchronize()
+    launches = K.launches
+    peak = torch.cuda.max_memory_allocated()
+    if launches != cfg.layers or rs.launches:
+        fail(f"prefill launched ssd_scan {launches} times (and permute_step "
+             f"{rs.launches}), expected {cfg.layers} and 0")
+    want_shape = (b, s, cfg.padded_vocab)
+    if tuple(logits.shape) != want_shape:
+        fail(f"prefill logits {tuple(logits.shape)}, expected {want_shape}")
+    if not all(bool(torch.isfinite(logits[i]).all()) for i in range(b)):
+        fail("prefill logits are not finite")
+    ms = min(cuda_ms(lambda: model.prefill(batch, cache)) for _ in range(2))
+    log(f"[lm] {cfg.name}: {sum(p.numel() for p in model.parameters())} "
+        f"parameters; prefill {b}x{s}: {launches} ssd_scan launches, finite "
+        f"logits {want_shape}, {ms!r} ms, {b * s / ms * 1e3!r} tokens/s, "
+        f"peak memory {peak} B")
+
+    errs = []
+
+    def checked(x, dt, A, B, C):
+        y = kernel(x, dt, A, B, C)
+        errs.append(compare(torch, y, ref.ssd_chunked(x, dt, A, B, C),
+                            BF16_TOL, f"layer {len(errs)}", quiet=True))
+        return y
+
+    with ssd_as(ops, checked) as kernel:
+        model.forward(batch)
+    layer_err = max(errs)
+    log(f"[lm] K3 vs plain on each layer's own inputs ({len(errs)} layers, "
+        f"bf16): max_abs_err {layer_err!r} (tolerance {BF16_TOL} abs + "
+        f"{BF16_TOL} rel)")
+
+    f32 = LM(cfg.scaled(dtype="float32"))
+    f32.load_state_dict(model.state_dict())     # the same weights, widened
+    got32 = f32.forward(batch)
+    with ssd_as(ops, ref.ssd_chunked):
+        plain32 = f32.forward(batch)
+    err32 = logits_err(torch, got32, plain32, f"prefill {b}x{s} float32: "
+                       f"K3 vs plain SSD", tol=F32_MODEL_TOL)
+    del got32
+    with ssd_as(ops, ref.ssd_chunked):
+        plain16 = model.forward(batch)
+    noise = logits_err(torch, plain16, plain32, f"prefill {b}x{s}: plain "
+                       f"SSD bf16 vs float32 (bf16's own error)")
+    err = logits_err(torch, logits, plain16, f"prefill {b}x{s} bf16: K3 vs "
+                     f"plain SSD", bound=2 * noise)
+    del logits, plain16, plain32
+    torch.cuda.empty_cache()
+    return model, f32, dict(launches=launches, ms=ms, peak=peak, err=err,
+                            err32=err32, layer_err=layer_err)
+
+
+def decode_vs_forward(torch, model, tokens, what, **rule):
+    full = model.forward(dict(tokens=tokens))
+    cache = model.init_cache(tokens.shape[0], tokens.shape[1])
+    steps = torch.empty_like(full)
+    for t in range(tokens.shape[1]):
+        steps[:, t] = model.decode_step(cache, tokens[:, t:t + 1])[0][:, 0]
+    return logits_err(torch, steps, full, what, **rule), full
+
+
+def phase_decode(torch, model, f32, cfg, SyntheticTokens):
+    """Teacher-forced decode against forward over 4 x 256 tokens, at full
+    depth: in float32 within F32_MODEL_TOL, in bf16 within twice bf16's own
+    distance from float32 (as in the prefill)."""
+    toks = SyntheticTokens(cfg, seq_len=256, global_batch=4).batch(1)
+    toks = toks["tokens"].cuda()
+    err32, full32 = decode_vs_forward(
+        torch, f32, toks, "decode_step vs forward, 4x256, float32, "
+        "48 layers", tol=F32_MODEL_TOL)
+    full16 = model.forward(dict(tokens=toks))
+    noise = logits_err(torch, full16, full32, "forward 4x256 bf16 vs "
+                       "float32 (bf16's own error)")
+    del full16, full32
+    err, _ = decode_vs_forward(torch, model, toks, "decode_step vs forward, "
+                               "4x256, bf16, 48 layers", bound=2 * noise)
+    return err, err32
+
+
+def phase_serve(torch, serve, cfg):
+    gen = serve.main(["--arch", "mamba2-370m", "--batch", "4",
+                      "--prompt-len", "32", "--tokens", "32"])
+    if tuple(gen.shape) != (4, 32) or gen.dtype != torch.int32 or \
+            int(gen.min()) < 0 or int(gen.max()) >= cfg.padded_vocab:
+        fail(f"serve returned {gen.dtype} {tuple(gen.shape)} tokens")
+    log(f"[serve] serve.main: (4, 32) greedy tokens; first row "
+        f"{gen[0, :8].tolist()}")
+
+
+def phase_ssd_timing(torch, K, ref, rate):
+    b, s, h, dh, ds, chunk = SSD_MAIN
+    args = ssd_inputs(torch, b, s, h, dh, ds, torch.bfloat16, 6)
+    y = K.ssd_scan(*args, chunk=chunk)
+    nbytes = sum(t.numel() * t.element_size() for t in args + (y,))
+    nc = -(-s // chunk)
+    flops = b * h * nc * (2 * chunk * chunk * (ds + dh) + 4 * chunk * ds * dh)
+    bound_ms = max(nbytes / rate, flops / BF16_PEAK) * 1e3
+    bound_by = "bytes" if nbytes / rate >= flops / BF16_PEAK else "operations"
+    reps = 20
+    kernel_ms = min(cuda_ms(lambda: [K.ssd_scan(*args, chunk=chunk)
+                                     for _ in range(reps)])
+                    for _ in range(2)) / reps
+    plain_ms = min(cuda_ms(lambda: ref.ssd_chunked(*args, chunk=chunk))
+                   for _ in range(3))
+    log(f"[timing] ssd_scan at {SSD_MAIN}, bf16: kernel {kernel_ms!r} ms per "
+        f"launch, bound {bound_ms!r} ms ({bound_by}: {nbytes} B at "
+        f"{rate / 1e12:.2f} TB/s, {flops} FLOP at 989 TFLOP/s), plain "
+        f"{plain_ms!r} ms; library: none (no single PyTorch call computes "
+        f"the SSD scan)")
+    return dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def phase_decode_timing(torch, model, serve, SyntheticTokens, cfg):
+    toks = SyntheticTokens(cfg, seq_len=32, global_batch=4).batch(2)
+    toks = toks["tokens"]
+    cache = model.init_cache(4, 64)
+    cur = toks[:, :1].cuda()
+    model.decode_step(cache, cur)
+    n = 32
+    step_ms = cuda_ms(lambda: [model.decode_step(cache, cur)
+                               for _ in range(n)]) / n
+    res = serve.generate(model, toks, 32)
+    log(f"[timing] decode_step, batch 4: {step_ms!r} ms per step (eager); "
+        f"serve loop (prompt 32, 32 new tokens, batch 4): fill "
+        f"{res.fill_s!r} s, generate {res.gen_s!r} s, "
+        f"{res.tok_per_s!r} tok/s")
+    return dict(step_ms=step_ms, tok_per_s=res.tok_per_s)
+
+
+def profile_window(torch, fn, what):
+    """Runs ``fn`` once under ``torch.profiler`` and logs the device's busy
+    share of the window (kernel time over host wall time, both ended by a
+    synchronize) and the kernel time by kind. Returns the kernel times."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + \
+                e.time_range.elapsed_us()
+    busy = sum(by_name.values())
+    kinds = {"ssd_scan (K3)": 0.0, "matmul": 0.0, "other": 0.0}
+    for n, us in by_name.items():
+        k = "ssd_scan (K3)" if "ssd_scan" in n else \
+            "matmul" if any(w in n.lower() for w in (
+                "gemm", "gemv", "nvjet", "xmma", "cutlass")) else "other"
+        kinds[k] += us
+    log(f"[profile] {what}: kernels busy {busy / 1e3!r} ms of a "
+        f"{wall_us / 1e3!r} ms window (profiler on), busy share "
+        f"{busy / wall_us!r}; " + ", ".join(
+            f"{k} {v / 1e3!r} ms" for k, v in kinds.items()))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    for n, us in top:
+        log(f"[profile]   {us / 1e3:10.3f} ms  {n[:100]}")
+    return kinds, busy, wall_us
+
+
+def phase_profile(torch, model, cfg, SyntheticTokens):
+    b, s = SSD_MAIN[:2]
+    batch = SyntheticTokens(cfg, seq_len=s, global_batch=b).batch(0)
+    cache = model.init_cache(b, s)
+    profile_window(torch, lambda: model.prefill(batch, cache),
+                   f"prefill {b}x{s}")
+    cur = batch["tokens"][:, :1].cuda()
+    profile_window(torch, lambda: [model.decode_step(cache, cur)
+                                   for _ in range(4)],
+                   "4 decode steps, batch 4")
+
+
 def main():
     try:
         import torch
@@ -279,8 +599,14 @@ def main():
     from repro_torch import api
     from repro_torch.core import topology as T
     from repro_torch.core.simconfig import DeviceConfig, SimConfig
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticTokens
     from repro_torch.device import round_step as rs
     from repro_torch.device import runner
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ssd_scan as K
+    from repro_torch.launch import serve
+    from repro_torch.models.model import LM
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -291,7 +617,10 @@ def main():
 
     phase_build()
     max_err = phase_kernel_vs_plain(np, torch, rs)
+    K.launches = 0
     ex, x, lay, launches, secs = phase_main(torch, rs, api, T)
+    if K.launches:
+        fail(f"the broadcast path launched ssd_scan {K.launches} times")
     phase_small(torch, api, T, DeviceConfig, SimConfig)
     tm = phase_timing(np, torch, rs, runner, ex, x, lay, rate)
     moved = tm["bytes"]
@@ -305,6 +634,25 @@ def main():
         f" us ({tm['bytes'] / tm['launches_timed']:.0f} B per launch at "
         f"{rate / 1e12:.2f} TB/s), plain {tm['plain_ms'] * 1e3:.3f} us, "
         f"index_select+index_copy_ {tm['library_ms'] * 1e3:.3f} us")
+    del ex, x
+    torch.cuda.empty_cache()
+
+    ssd_err = phase_ssd_vs_plain(torch, K, ref)
+    cfg = get_config("mamba2-370m")
+    model, f32, pf = phase_prefill(torch, K, rs, ref, ops, cfg, LM,
+                                   SyntheticTokens)
+    phase_decode(torch, model, f32, cfg, SyntheticTokens)
+    del f32
+    torch.cuda.empty_cache()
+    phase_serve(torch, serve, cfg)
+    st = phase_ssd_timing(torch, K, ref, rate)
+    dec = phase_decode_timing(torch, model, serve, SyntheticTokens, cfg)
+    phase_profile(torch, model, cfg, SyntheticTokens)
+    log(f"[summary] {name}: K3 {st['ms']!r} ms per launch x {pf['launches']} "
+        f"launches per prefill; prefill 4x2048 {pf['ms']!r} ms "
+        f"({4 * 2048 / pf['ms'] * 1e3!r} tokens/s), peak {pf['peak']} B; "
+        f"decode {dec['step_ms']!r} ms per step; serve {dec['tok_per_s']!r} "
+        f"tok/s")
     kernels = [{
         "name": "permute_step", "route": "cuda",
         "source": "src/repro_torch/csrc/permute_step.cu",
@@ -313,6 +661,14 @@ def main():
         "ms": tm["ms"], "plain_ms": tm["plain_ms"],
         "bound_ms": tm["bound_ms"], "bound_by": "bytes",
         "library_ms": tm["library_ms"],
+    }, {
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:30",
+        "launches": pf["launches"], "max_abs_err": ssd_err,
+        "ms": st["ms"], "plain_ms": st["plain_ms"],
+        "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
+        "library_ms": None,
     }]
     print(name, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -5,5 +5,7 @@ reference). Imports ``torch``, numpy and scipy; never ``jax`` or ``repro``.
 (topology, LP, trees, schedule, simulators, BBS plans, baselines);
 ``repro_torch.device`` runs plans on n virtual devices of one GPU, one
 hand-written CUDA kernel launch per sub-round; ``repro_torch.api`` is the
-facade.
+facade. The LM substrate so far: ``configs`` (a copy), ``data``,
+``kernels`` (the SSD scan as a hand-written CUDA kernel beside its plain
+versions), ``models`` (Mamba-2, the ``ssm`` family) and ``launch.serve``.
 """

@@ -5,8 +5,10 @@ A reference ``repro.device.schedule.DeviceSchedule`` given as plain data --
 lists, arrays become nested lists) -- becomes the port's
 ``DeviceSchedule``, so tables the JAX package compiled run unchanged on
 the port's virtual mesh. It is this system's counterpart of loading a
-model's weights into the port. The port's own invariant (no device sends
-and receives one row in one sub-round) is checked on the way in.
+model's weights into the port; the LM's weights themselves are carried by
+``repro_torch.models.carry.import_lm_params``. The port's own invariant (no
+device sends and receives one row in one sub-round) is checked on the way
+in.
 """
 
 from __future__ import annotations

@@ -1,7 +1,8 @@
 """Port tests that need an NVIDIA GPU (marker ``cuda``): the hand-written
-round-step kernel against its plain PyTorch version, and small broadcasts on
-the card against the same broadcasts on the CPU. They skip on a host without
-a GPU; on the card run them with
+kernels (the round step K1, the SSD scan K3) against their plain PyTorch
+versions, small broadcasts on the card against the same broadcasts on the
+CPU, and the Mamba-2 LM on the card against the CPU. They skip on a host
+without a GPU; on the card run them with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -104,3 +105,97 @@ def test_small_broadcast_on_card_matches_cpu(gpu, algo):
         device=DeviceConfig(device="cpu"))).run(x)
     assert torch.equal(out.cpu().view(torch.int16), cpu.view(torch.int16))
     assert ex.verify(x).ok
+
+
+SSD_SHAPES = [(1, 64, 2, 32, 16, 32), (2, 100, 4, 64, 32, 32),
+              (1, 256, 2, 64, 128, 128), (1, 32, 8, 128, 64, 16),
+              (2, 5, 3, 64, 128, 128)]
+
+
+def _ssd_inputs(gpu, seed, b, s, h, dh, ds, dtype):
+    g = torch.Generator(device=gpu).manual_seed(seed)
+    x = torch.randn(b, s, h, dh, device=gpu, generator=g).to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn(b, s, h, device=gpu, generator=g)) * 0.1
+    A = -torch.exp(torch.randn(h, device=gpu, generator=g))
+    B = torch.randn(b, s, h, ds, device=gpu, generator=g).to(dtype)
+    C = torch.randn(b, s, h, ds, device=gpu, generator=g).to(dtype)
+    return x, dt, A, B, C
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,dh,ds,chunk", SSD_SHAPES)
+def test_ssd_kernel_matches_plain(gpu, dtype, b, s, h, dh, ds, chunk):
+    """K3 against ``ssd_chunked`` on the card; tolerances of
+    ``tests/test_kernels.py`` (float32 3e-5, bf16 2e-2)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as K
+
+    args = _ssd_inputs(gpu, s, b, s, h, dh, ds, getattr(torch, dtype))
+    before = K.launches
+    got = K.ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert K.launches == before + 1 and got.dtype == args[0].dtype
+    want = ref.ssd_chunked(*args, chunk=chunk)
+    tol = 2e-2 if dtype == "bfloat16" else 3e-5
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_ssd_kernel_chunk_invariance(gpu):
+    from repro_torch.kernels import ssd_scan as K
+
+    args = _ssd_inputs(gpu, 1, 1, 128, 2, 32, 16, torch.float32)
+    outs = [K.ssd_scan(*args, chunk=c) for c in (16, 32, 64, 128)]
+    for o in outs[1:]:
+        torch.testing.assert_close(o, outs[0], atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("bf16", [1, 0])
+def test_ssd_kernel_fits_the_prefill_shape(gpu, bf16):
+    """Mamba-2 370M prefill (chunk 128, dh 64, ds 128) fits one block's
+    shared memory in bf16 (the model's dtype) and in float32."""
+    from repro_torch.kernels import ssd_scan as K
+
+    lib = K._kernel()
+    assert 0 < lib.ssd_scan_smem(128, 64, 128, bf16) <= \
+        lib.ssd_scan_smem_limit()
+
+
+def test_ssd_kernel_rejects_bad_inputs(gpu):
+    from repro_torch.kernels import ssd_scan as K
+
+    x, dt, A, B, C = _ssd_inputs(gpu, 2, 1, 64, 2, 32, 16, torch.bfloat16)
+    with pytest.raises(ValueError):              # mixed dtypes
+        K.ssd_scan(x, dt, A, B.float(), C)
+    with pytest.raises(ValueError):              # not contiguous
+        K.ssd_scan(x.transpose(2, 3).contiguous().transpose(2, 3), dt, A,
+                   B, C)
+    with pytest.raises(ValueError):              # A on the CPU
+        K.ssd_scan(x, dt, A.cpu(), B, C)
+    big = _ssd_inputs(gpu, 3, 1, 256, 1, 128, 128, torch.float32)
+    with pytest.raises(ValueError):              # shared memory too large
+        K.ssd_scan(*big, chunk=128)
+
+
+def test_lm_on_card_matches_cpu(gpu):
+    """The smoke Mamba-2 in float32: one K3 launch per layer in forward, and
+    forward and decode logits equal to the CPU run (1e-4)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ssd_scan as K
+    from repro_torch.models.model import LM
+
+    cfg = get_config("mamba2-370m").smoke().scaled(dtype="float32")
+    cpu, card = LM(cfg, device="cpu"), LM(cfg, device=gpu)
+    card.load_state_dict(cpu.state_dict())
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 40)).astype(np.int32))
+    before = K.launches
+    got = card.forward(dict(tokens=toks))
+    assert K.launches - before == cfg.layers
+    torch.testing.assert_close(got.cpu(), cpu.forward(dict(tokens=toks)),
+                               atol=1e-4, rtol=1e-4)
+    c_cpu, c_card = cpu.init_cache(2, 4), card.init_cache(2, 4)
+    for t in range(4):
+        a = cpu.decode_step(c_cpu, toks[:, t:t + 1])[0]
+        b = card.decode_step(c_card, toks[:, t:t + 1])[0]
+        torch.testing.assert_close(b.cpu(), a, atol=1e-4, rtol=1e-4)
