@@ -6,7 +6,8 @@
 Phases, each of which exits non-zero on failure:
 
 1. build every CUDA kernel of the main paths with ``nvcc`` (sm_90a), all
-   sources at once: ``permute_step`` (K1) and ``ssd_scan`` (K3);
+   sources at once: ``permute_step`` (K1), ``flash_attention`` (K2) and
+   ``ssd_scan`` (K3);
 2. hold K1 bit-exact against its plain PyTorch version on the card:
    random tables with every edge case, float32 and bfloat16 payloads, and a
    buffer over 2**31 bytes;
@@ -32,7 +33,28 @@ Phases, each of which exits non-zero on failure:
 8. K3's timing at the prefill shape (its bound, the plain version), prefill
    and decode times, serve's tokens/s and the prefill's peak memory; then
    a ``torch.profiler`` window over one prefill and over four decode steps
-   (the device's busy share and kernel time by kind).
+   (the device's busy share and kernel time by kind);
+9. hold K2 against its plain version (``attention_ref``) on the card: the
+   llama3.2-3b prefill shape (B 4, Hq 32, Hkv 16, S = T = 2048, D 128) in
+   bf16 and float32, ragged S = T = 2000, non-causal, the decode offset
+   (S = 1 and S = 16 against T = 2048), S > T with fully-masked rows
+   (exactly 0), and the odd sizes 37/37 with D 32;
+10. the serving path of llama3.2-3b at full width (28 layers, random weights
+   from seed 0), the Mamba-2 models freed first: ``LM.prefill`` of
+   4 x 2048 ``SyntheticTokens`` with exactly one K2 launch per layer (and
+   none of K1 and K3), finite logits, the peak memory; K2 against plain
+   attention on every layer's own inputs; the float32 twin against its
+   plain-attention prefill; teacher-forced ``decode_step`` against
+   ``forward`` over 4 x 256 tokens in float32 and bf16, and a decode step
+   after a ``prefill``-filled cache; the float32 twin rescaled to the
+   reference's attention init, where ``attention_blockwise`` is held
+   against ``attention_ref`` beside K2 (a reading: why the port's init is
+   the fan-in); ``serve.main --arch llama3.2-3b`` to (4, 32) greedy tokens;
+11. K2's timing at the prefill shape: its bound (operations), the plain
+   version and ``scaled_dot_product_attention`` as the library yardstick
+   (timed here only; the port never calls it); prefill time, decode time
+   after a 4 x 2048 prefill, serve's tokens/s; a ``torch.profiler`` window
+   over one dense prefill and the four decode steps after it.
 
 The last lines are the card (``nvidia-smi`` name and power limit), one JSON
 line with every kernel, and ``{"ok": true, "device": {...}}``. Without a
@@ -54,6 +76,9 @@ MEM_RATE = (("H200", 4.8e12), ("H100", 3.35e12))
 BF16_PEAK = 989e12        # dense bf16 tensor-core FLOP/s (H100/H200 SXM)
 # the Mamba-2 370M prefill: batch, sequence, heads, head dim, state, chunk
 SSD_MAIN = (4, 2048, 32, 64, 128, 128)
+# the llama3.2-3b prefill's attention: batch, q heads (the TP padding's 32
+# slots), kv heads (16), query rows, key columns, head dim
+ATTN_MAIN = (4, 32, 16, 2048, 2048, 128)
 BF16_TOL, F32_TOL, CHUNK_TOL = 2e-2, 3e-5, 1e-4   # tests/test_kernels.py
 F32_MODEL_TOL = 1e-3      # float32 logits at full depth
 
@@ -97,7 +122,7 @@ def cuda_ms(fn):
 def phase_build():
     from repro_torch import nvcc
     t0 = time.perf_counter()
-    names = ["permute_step", "ssd_scan"]
+    names = ["permute_step", "flash_attention", "ssd_scan"]
     nvcc.build(names)
     log(f"[build] {', '.join(names)} built in "
         f"{time.perf_counter() - t0:.3f} s")
@@ -307,7 +332,7 @@ def ssd_inputs(torch, b, s, h, dh, ds, dtype, seed, dt_value=None, a=None):
     return x, dt, A, B, C
 
 
-def compare(torch, got, want, tol, what, quiet=False):
+def compare(torch, got, want, tol, what, quiet=False, tag="ssd"):
     """Fails unless |got - want| <= tol + tol |want| everywhere (and both
     are finite); returns the largest |got - want|."""
     got, want = got.float(), want.float()
@@ -317,7 +342,7 @@ def compare(torch, got, want, tol, what, quiet=False):
     worst = float(err.max())
     bad = int((err > tol + tol * want.abs()).sum())
     if not quiet:
-        log(f"[ssd] {what}: max_abs_err {worst!r} (max |want| "
+        log(f"[{tag}] {what}: max_abs_err {worst!r} (max |want| "
             f"{float(want.abs().max())!r}, tolerance {tol} abs + {tol} rel)")
     if bad:
         fail(f"{what}: {bad} values outside the tolerance "
@@ -477,24 +502,26 @@ def phase_decode(torch, model, f32, cfg, SyntheticTokens):
     toks = SyntheticTokens(cfg, seq_len=256, global_batch=4).batch(1)
     toks = toks["tokens"].cuda()
     err32, full32 = decode_vs_forward(
-        torch, f32, toks, "decode_step vs forward, 4x256, float32, "
-        "48 layers", tol=F32_MODEL_TOL)
+        torch, f32, toks, f"decode_step vs forward, 4x256, float32, "
+        f"{cfg.layers} layers", tol=F32_MODEL_TOL)
     full16 = model.forward(dict(tokens=toks))
     noise = logits_err(torch, full16, full32, "forward 4x256 bf16 vs "
                        "float32 (bf16's own error)")
     del full16, full32
-    err, _ = decode_vs_forward(torch, model, toks, "decode_step vs forward, "
-                               "4x256, bf16, 48 layers", bound=2 * noise)
-    return err, err32
+    err, _ = decode_vs_forward(torch, model, toks, f"decode_step vs forward, "
+                               f"4x256, bf16, {cfg.layers} layers",
+                               bound=2 * noise)
+    return err, err32, noise
 
 
 def phase_serve(torch, serve, cfg):
-    gen = serve.main(["--arch", "mamba2-370m", "--batch", "4",
+    gen = serve.main(["--arch", cfg.name, "--batch", "4",
                       "--prompt-len", "32", "--tokens", "32"])
     if tuple(gen.shape) != (4, 32) or gen.dtype != torch.int32 or \
             int(gen.min()) < 0 or int(gen.max()) >= cfg.padded_vocab:
         fail(f"serve returned {gen.dtype} {tuple(gen.shape)} tokens")
-    log(f"[serve] serve.main: (4, 32) greedy tokens; first row "
+    log(f"[serve] serve.main --arch {cfg.name}: (4, 32) greedy tokens; "
+        f"first row "
         f"{gen[0, :8].tolist()}")
 
 
@@ -523,16 +550,22 @@ def phase_ssd_timing(torch, K, ref, rate):
 
 
 def phase_decode_timing(torch, model, serve, SyntheticTokens, cfg):
-    toks = SyntheticTokens(cfg, seq_len=32, global_batch=4).batch(2)
-    toks = toks["tokens"]
-    cache = model.init_cache(4, 64)
-    cur = toks[:, :1].cuda()
+    """``decode_step`` at batch 4 after a 4 x 2048 prefill (a dense cache of
+    2048 + 64 slots, all of which every step reads), then the serve loop."""
+    b, s = SSD_MAIN[:2]          # both families prefill 4 x 2048
+    batch = SyntheticTokens(cfg, seq_len=s, global_batch=b).batch(2)
+    cache = model.init_cache(b, s + 64)
+    model.prefill(batch, cache)
+    cur = batch["tokens"][:, :1].cuda()
     model.decode_step(cache, cur)
     n = 32
     step_ms = cuda_ms(lambda: [model.decode_step(cache, cur)
                                for _ in range(n)]) / n
-    res = serve.generate(model, toks, 32)
-    log(f"[timing] decode_step, batch 4: {step_ms!r} ms per step (eager); "
+    del cache
+    toks = SyntheticTokens(cfg, seq_len=32, global_batch=4).batch(2)
+    res = serve.generate(model, toks["tokens"], 32)
+    log(f"[timing] {cfg.name} decode_step, batch 4, after a {b}x{s} "
+        f"prefill: {step_ms!r} ms per step (eager); "
         f"serve loop (prompt 32, 32 new tokens, batch 4): fill "
         f"{res.fill_s!r} s, generate {res.gen_s!r} s, "
         f"{res.tok_per_s!r} tok/s")
@@ -557,9 +590,11 @@ def profile_window(torch, fn, what):
             by_name[e.name] = by_name.get(e.name, 0.0) + \
                 e.time_range.elapsed_us()
     busy = sum(by_name.values())
-    kinds = {"ssd_scan (K3)": 0.0, "matmul": 0.0, "other": 0.0}
+    kinds = {"flash_attention (K2)": 0.0, "ssd_scan (K3)": 0.0,
+             "matmul": 0.0, "other": 0.0}
     for n, us in by_name.items():
-        k = "ssd_scan (K3)" if "ssd_scan" in n else \
+        k = "flash_attention (K2)" if "attn_kernel" in n else \
+            "ssd_scan (K3)" if "ssd_scan" in n else \
             "matmul" if any(w in n.lower() for w in (
                 "gemm", "gemv", "nvjet", "xmma", "cutlass")) else "other"
         kinds[k] += us
@@ -574,15 +609,268 @@ def profile_window(torch, fn, what):
 
 
 def phase_profile(torch, model, cfg, SyntheticTokens):
-    b, s = SSD_MAIN[:2]
+    b, s = SSD_MAIN[:2]          # both families prefill 4 x 2048
     batch = SyntheticTokens(cfg, seq_len=s, global_batch=b).batch(0)
-    cache = model.init_cache(b, s)
+    cache = model.init_cache(b, s + 64)
     profile_window(torch, lambda: model.prefill(batch, cache),
-                   f"prefill {b}x{s}")
+                   f"{cfg.name} prefill {b}x{s}")
     cur = batch["tokens"][:, :1].cuda()
     profile_window(torch, lambda: [model.decode_step(cache, cur)
                                    for _ in range(4)],
-                   "4 decode steps, batch 4")
+                   f"{cfg.name} 4 decode steps after the prefill, batch {b}")
+
+
+def attn_inputs(torch, b, hq, hkv, s, t, d, dtype, seed):
+    """q (b, hq, s, d), k and v (b, hkv, t, d) on the card, normal, from a
+    seed."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return tuple(torch.randn(shape, device="cuda", generator=g).to(dtype)
+                 for shape in ((b, hq, s, d), (b, hkv, t, d), (b, hkv, t, d)))
+
+
+def phase_attn_vs_plain(torch, FA, ref):
+    """K2 against its plain version on the card. Returns the max abs error
+    at the prefill shape (bf16)."""
+    b, hq, hkv, s, t, d = ATTN_MAIN
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [("prefill shape bf16", (b, hq, hkv, s, t, d), bf, True),
+             ("prefill shape float32", (b, hq, hkv, s, t, d), f32, True),
+             ("ragged S=T=2000 bf16", (b, hq, hkv, 2000, 2000, d), bf, True),
+             ("non-causal S=T=2048 bf16", (b, hq, hkv, s, t, d), bf, False),
+             ("decode S=1 T=2048 float32", (b, hq, hkv, 1, t, d), f32, True),
+             ("decode S=1 T=2048 bf16", (b, hq, hkv, 1, t, d), bf, True),
+             ("decode S=16 T=2048 float32", (b, hq, hkv, 16, t, d), f32,
+              True),
+             ("decode S=16 T=2048 bf16", (b, hq, hkv, 16, t, d), bf, True),
+             ("S=300 > T=200 causal float32", (2, 8, 4, 300, 200, d), f32,
+              True),
+             ("S=300 > T=200 causal bf16", (2, 8, 4, 300, 200, d), bf, True),
+             ("odd 37/37 D 32 float32", (2, 4, 4, 37, 37, 32), f32, True),
+             ("odd 37/37 D 32 bf16", (2, 4, 4, 37, 37, 32), bf, True),
+             ("odd 37/37 D 32 non-causal float32", (2, 4, 4, 37, 37, 32),
+              f32, False)]
+    main_err = None
+    for i, (what, shape, dtype, causal) in enumerate(cases):
+        args = attn_inputs(torch, *shape, dtype, 20 + i)
+        got = FA.flash_attention(*args, causal=causal)
+        err = compare(torch, got, ref.attention_ref(*args, causal=causal),
+                      BF16_TOL if dtype == bf else F32_TOL, what, tag="attn")
+        main_err = err if main_err is None else main_err
+        sq, tk = shape[3], shape[4]
+        if causal and sq > tk:
+            if got[:, :, :sq - tk].any():
+                fail(f"{what}: fully-masked rows are not 0")
+            log(f"[attn] {what}: the {sq - tk} fully-masked rows are 0")
+        del args, got
+    torch.cuda.synchronize()
+    return main_err
+
+
+@contextlib.contextmanager
+def attention_as(ops, fn):
+    """Within the block the model's attention is ``fn``; yields the real
+    one."""
+    real = ops.attention
+    ops.attention = fn
+    try:
+        yield real
+    finally:
+        ops.attention = real
+
+
+def phase_dense_prefill(torch, FA, K, rs, ref, ops, cfg, LM,
+                        SyntheticTokens):
+    """The dense serving path's prefill at full width, with K2 held to plain
+    attention three ways, as K3 is in ``phase_prefill``: on every layer's
+    own inputs (the bf16 kernel tolerance), on the whole prefill in float32
+    (same weights, F32_MODEL_TOL), and on the whole prefill in bf16 within
+    twice bf16's own distance from float32. Returns the bf16 model, its
+    float32 twin and the numbers."""
+    b, s = ATTN_MAIN[0], ATTN_MAIN[3]
+    model = LM(cfg)
+    batch = SyntheticTokens(cfg, seq_len=s, global_batch=b).batch(0)
+    cache = model.init_cache(b, s)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    FA.launches = K.launches = rs.launches = 0
+    logits, cache = model.prefill(batch, cache)
+    torch.cuda.synchronize()
+    launches = FA.launches
+    peak = torch.cuda.max_memory_allocated()
+    if launches != cfg.layers or K.launches or rs.launches:
+        fail(f"dense prefill launched flash_attention {launches} times (and "
+             f"ssd_scan {K.launches}, permute_step {rs.launches}), expected "
+             f"{cfg.layers}, 0 and 0")
+    if int(cache["pos"]) != s or not bool(cache["k"][:, :, :, s - 1].any()):
+        fail("the prefill did not fill the k/v cache")
+    want_shape = (b, s, cfg.padded_vocab)
+    if tuple(logits.shape) != want_shape:
+        fail(f"prefill logits {tuple(logits.shape)}, expected {want_shape}")
+    if not all(bool(torch.isfinite(logits[i]).all()) for i in range(b)):
+        fail("prefill logits are not finite")
+    ms = min(cuda_ms(lambda: model.prefill(batch, cache)) for _ in range(2))
+    log(f"[lm] {cfg.name}: {sum(p.numel() for p in model.parameters())} "
+        f"parameters; prefill {b}x{s}: {launches} flash_attention launches, "
+        f"finite logits {want_shape}, {ms!r} ms, {b * s / ms * 1e3!r} "
+        f"tokens/s, peak memory {peak} B")
+    del cache
+
+    errs, peaks = [], []
+
+    def checked(q, k, v, causal=True):
+        o = kernel(q, k, v, causal=causal)
+        errs.append(compare(torch, o, ref.attention_ref(q, k, v,
+                                                        causal=causal),
+                            BF16_TOL, f"layer {len(errs)}", quiet=True))
+        peaks.append(float((q[0, 0].float() @ k[0, 0].float().T).abs().max())
+                     * ref.default_scale(q.shape[-1]))
+        return o
+
+    with attention_as(ops, checked) as kernel:
+        model.forward(batch)
+    layer_err = max(errs)
+    log(f"[lm] K2 vs plain on each layer's own inputs ({len(errs)} layers, "
+        f"bf16): max_abs_err {layer_err!r} (tolerance {BF16_TOL} abs + "
+        f"{BF16_TOL} rel); largest attention logit of batch row 0, head 0: "
+        f"{min(peaks)!r} to {max(peaks)!r} over the layers")
+
+    f32 = LM(cfg.scaled(dtype="float32"))
+    f32.load_state_dict(model.state_dict())     # the same weights, widened
+    got32 = f32.forward(batch)
+    with attention_as(ops, ref.attention_ref):
+        plain32 = f32.forward(batch)
+    err32 = logits_err(torch, got32, plain32, f"prefill {b}x{s} float32: "
+                       f"K2 vs plain attention", tol=F32_MODEL_TOL)
+    del got32
+    with attention_as(ops, ref.attention_ref):
+        plain16 = model.forward(batch)
+    noise = logits_err(torch, plain16, plain32, f"prefill {b}x{s}: plain "
+                       f"attention bf16 vs float32 (bf16's own error)")
+    err = logits_err(torch, logits, plain16, f"prefill {b}x{s} bf16: K2 vs "
+                     f"plain attention", bound=2 * noise)
+    del logits, plain16, plain32
+    torch.cuda.empty_cache()
+    return model, f32, dict(launches=launches, ms=ms, peak=peak, err=err,
+                            err32=err32, layer_err=layer_err)
+
+
+def phase_dense_decode(torch, model, f32, cfg, SyntheticTokens):
+    """``phase_decode`` (teacher-forced decode against forward); then, in
+    float32 and in bf16, the cache a ``prefill`` of 4 x 255 tokens fills
+    against the one teacher-forcing fills, and the next decode step against
+    ``forward`` over all 256 tokens. Float32 within F32_MODEL_TOL; bf16
+    within twice bf16's own distance from float32."""
+    _, _, noise = phase_decode(torch, model, f32, cfg, SyntheticTokens)
+    toks = SyntheticTokens(cfg, seq_len=256, global_batch=4).batch(1)
+    toks = toks["tokens"].cuda()
+    caches = {}
+    for m, dt in ((f32, "float32"), (model, "bf16")):
+        forced = m.init_cache(4, 256)
+        for t in range(255):
+            m.decode_step(forced, toks[:, t:t + 1])
+        filled = m.init_cache(4, 256)
+        m.prefill(dict(tokens=toks[:, :255]), filled)
+        caches[dt] = (forced, filled)
+    for key in ("k", "v"):
+        f32_forced, f32_filled = (c[key] for c in caches["float32"])
+        forced, filled = (c[key] for c in caches["bf16"])
+        compare(torch, f32_filled, f32_forced, F32_MODEL_TOL,
+                f"prefill's {key} cache vs teacher-forced, 4x255, float32",
+                tag="lm")
+        own = float((forced.float() - f32_forced).abs().max())
+        err = float((filled.float() - forced.float()).abs().max())
+        log(f"[lm] prefill's {key} cache vs teacher-forced, 4x255, bf16: "
+            f"max_abs_err {err!r} (bound: twice bf16's own {own!r})")
+        if not err <= 2 * own:
+            fail(f"prefill's {key} cache, bf16, outside the bound")
+    for m, dt, rule in ((f32, "float32", dict(tol=F32_MODEL_TOL)),
+                        (model, "bf16", dict(bound=2 * noise))):
+        filled = caches[dt][1]
+        got = m.decode_step(filled, toks[:, 255:])[0]
+        want = m.forward(dict(tokens=toks))[:, 255:]
+        logits_err(torch, got, want, f"decode_step after prefill(4x255) vs "
+                   f"forward(4x256) at the last position, {dt}", **rule)
+    del caches
+    torch.cuda.empty_cache()
+
+
+def phase_reference_init(torch, ref, ops, f32, cfg, SyntheticTokens):
+    """Why the port's attention init is not the reference's (fault 5). The
+    float32 twin's wq, wk, wv and wo, drawn at their fan-ins (d_model, and
+    heads x head dim for wo), are rescaled in place to the reference's draw
+    (its ``_init`` scales a 4-d draw by 1/sqrt(shape[-2]): the head count
+    for wq, wk and wv, the head dim for wo), and the prefill
+    logits of K2 and of ``attention_blockwise`` are held against
+    ``attention_ref``. The two plain paths differ only in summation order.
+    A reading, not a gate; the twin is spent afterwards."""
+    b, s = ATTN_MAIN[0], ATTN_MAIN[3]
+    batch = SyntheticTokens(cfg, seq_len=s, global_batch=b).batch(0)
+    dm, hq, hkv = cfg.d_model, cfg.heads, cfg.kv_heads
+    for key, factor in (("wq", dm / hq), ("wk", dm / hkv), ("wv", dm / hkv),
+                        ("wo", hq)):
+        f32.attn[key].mul_(factor ** 0.5)
+    peaks = []
+
+    def plain(q, k, v, causal=True):
+        peaks.append(float((q[0, 0] @ k[0, 0].T).abs().max())
+                     * ref.default_scale(q.shape[-1]))
+        return ref.attention_ref(q, k, v, causal=causal)
+
+    with attention_as(ops, plain):
+        want = f32.forward(batch)
+    log(f"[lm] reference init, float32: largest attention logit of batch "
+        f"row 0, head 0: {min(peaks)!r} to {max(peaks)!r} over the layers")
+    what = f"prefill {b}x{s} float32 at the reference's init (seed 0, batch 0)"
+    got = f32.forward(batch)
+    k2 = logits_err(torch, got, want, f"{what}: K2 vs attention_ref")
+    del got
+    with attention_as(ops, ref.attention_blockwise):
+        got = f32.forward(batch)
+    blk = logits_err(torch, got, want, f"{what}: attention_blockwise vs "
+                     f"attention_ref (summation order only)")
+    del got, want
+    torch.cuda.empty_cache()
+    return k2, blk
+
+
+def attn_pairs(s, t, causal):
+    """(query row, key column) pairs the function needs: the causal
+    triangle with the decode offset, or all."""
+    if not causal:
+        return s * t
+    return sum(max(0, min(t, r + t - s + 1)) for r in range(s))
+
+
+def phase_attn_timing(torch, FA, ref, rate):
+    b, hq, hkv, s, t, d = ATTN_MAIN
+    args = attn_inputs(torch, *ATTN_MAIN, torch.bfloat16, 40)
+    o = FA.flash_attention(*args)
+    nbytes = sum(x.numel() * x.element_size() for x in args + (o,))
+    flops = 4 * d * b * hq * attn_pairs(s, t, True)
+    bound_ms = max(nbytes / rate, flops / BF16_PEAK) * 1e3
+    bound_by = "bytes" if nbytes / rate >= flops / BF16_PEAK else "operations"
+    reps = 5
+    kernel_ms = min(cuda_ms(lambda: [FA.flash_attention(*args)
+                                     for _ in range(reps)])
+                    for _ in range(2)) / reps
+    plain_ms = min(cuda_ms(lambda: ref.attention_ref(*args))
+                   for _ in range(2))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def library():
+        return sdpa(*args, is_causal=True, enable_gqa=True)
+    lib_err = float((library().float() - o.float()).abs().max())
+    library_ms = min(cuda_ms(lambda: [library() for _ in range(reps)])
+                     for _ in range(2)) / reps
+    log(f"[timing] flash_attention at {ATTN_MAIN} (B, Hq, Hkv, S, T, D), "
+        f"bf16, causal: kernel {kernel_ms!r} ms per launch, bound "
+        f"{bound_ms!r} ms ({bound_by}: {flops} FLOP at 989 TFLOP/s, "
+        f"{nbytes} B at {rate / 1e12:.2f} TB/s), plain {plain_ms!r} ms, "
+        f"scaled_dot_product_attention {library_ms!r} ms (yardstick; "
+        f"max |sdpa - kernel| {lib_err!r}); kernel at "
+        f"{flops / kernel_ms / 1e9!r} TFLOP/s")
+    return dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
 
 
 def main():
@@ -603,6 +891,7 @@ def main():
     from repro_torch.data.pipeline import SyntheticTokens
     from repro_torch.device import round_step as rs
     from repro_torch.device import runner
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import ssd_scan as K
     from repro_torch.launch import serve
@@ -617,10 +906,11 @@ def main():
 
     phase_build()
     max_err = phase_kernel_vs_plain(np, torch, rs)
-    K.launches = 0
+    K.launches = FA.launches = 0
     ex, x, lay, launches, secs = phase_main(torch, rs, api, T)
-    if K.launches:
-        fail(f"the broadcast path launched ssd_scan {K.launches} times")
+    if K.launches or FA.launches:
+        fail(f"the broadcast path launched ssd_scan {K.launches} and "
+             f"flash_attention {FA.launches} times")
     phase_small(torch, api, T, DeviceConfig, SimConfig)
     tm = phase_timing(np, torch, rs, runner, ex, x, lay, rate)
     moved = tm["bytes"]
@@ -639,8 +929,12 @@ def main():
 
     ssd_err = phase_ssd_vs_plain(torch, K, ref)
     cfg = get_config("mamba2-370m")
+    FA.launches = 0
     model, f32, pf = phase_prefill(torch, K, rs, ref, ops, cfg, LM,
                                    SyntheticTokens)
+    if FA.launches:
+        fail(f"the Mamba-2 prefill launched flash_attention {FA.launches} "
+             f"times")
     phase_decode(torch, model, f32, cfg, SyntheticTokens)
     del f32
     torch.cuda.empty_cache()
@@ -653,6 +947,27 @@ def main():
         f"({4 * 2048 / pf['ms'] * 1e3!r} tokens/s), peak {pf['peak']} B; "
         f"decode {dec['step_ms']!r} ms per step; serve {dec['tok_per_s']!r} "
         f"tok/s")
+    del model
+    torch.cuda.empty_cache()
+
+    attn_err = phase_attn_vs_plain(torch, FA, ref)
+    dcfg = get_config("llama3.2-3b")
+    dense, d32, dpf = phase_dense_prefill(torch, FA, K, rs, ref, ops, dcfg,
+                                          LM, SyntheticTokens)
+    phase_dense_decode(torch, dense, d32, dcfg, SyntheticTokens)
+    phase_reference_init(torch, ref, ops, d32, dcfg, SyntheticTokens)
+    del d32
+    torch.cuda.empty_cache()
+    phase_serve(torch, serve, dcfg)
+    at = phase_attn_timing(torch, FA, ref, rate)
+    ddec = phase_decode_timing(torch, dense, serve, SyntheticTokens, dcfg)
+    phase_profile(torch, dense, dcfg, SyntheticTokens)
+    log(f"[summary] {name}: K2 {at['ms']!r} ms per launch x "
+        f"{dpf['launches']} launches per prefill (bound {at['bound_ms']!r} "
+        f"ms, sdpa {at['library_ms']!r} ms); llama3.2-3b prefill 4x2048 "
+        f"{dpf['ms']!r} ms ({4 * 2048 / dpf['ms'] * 1e3!r} tokens/s), peak "
+        f"{dpf['peak']} B; decode {ddec['step_ms']!r} ms per step; serve "
+        f"{ddec['tok_per_s']!r} tok/s")
     kernels = [{
         "name": "permute_step", "route": "cuda",
         "source": "src/repro_torch/csrc/permute_step.cu",
@@ -661,6 +976,14 @@ def main():
         "ms": tm["ms"], "plain_ms": tm["plain_ms"],
         "bound_ms": tm["bound_ms"], "bound_by": "bytes",
         "library_ms": tm["library_ms"],
+    }, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:30",
+        "launches": dpf["launches"], "max_abs_err": attn_err,
+        "ms": at["ms"], "plain_ms": at["plain_ms"],
+        "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
+        "library_ms": at["library_ms"],
     }, {
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/ssd_scan.cu",

@@ -1,4 +1,21 @@
-"""Plain PyTorch versions of the SSD scan and RMSNorm.
+"""Plain PyTorch versions of attention, the SSD scan and RMSNorm.
+
+``attention_ref`` is attention in one dense masked product, the plain
+version of the hand-written kernel ``repro_torch.kernels.flash_attention``
+(K2); ``attention_blockwise`` is the same function over kv blocks with an
+online softmax, the reference's XLA path for long sequences. Layout
+``(B, H, S, D)`` for q and ``(B, Hkv, T, D)`` for k and v; q head
+``j * g + i`` (g = Hq / Hkv) reads kv head ``j``; with ``causal`` query row
+``r`` sees key columns ``c <= r + (T - S)``. Float32 inside, the output in
+q's dtype. Two differences from the reference's versions, both where the
+reference is not what its kernel computes:
+
+- a fully-masked row (causal with S > T) gives 0 in both, as the kernel
+  does; the reference's ``attention_ref`` gives NaN there (softmax of all
+  ``-inf``) and its ``attention_blockwise`` the mean of v over its block;
+- the default scale is the float32 ``1/sqrt(D)`` in both, as in the
+  kernel; the reference's ``attention_ref`` rounds it to q's dtype
+  (1.1e-4 relative in bfloat16 at D = 128).
 
 ``ssd_ref`` is the sequential scan, the definition. ``ssd_chunked`` is the
 same function in chunks -- dense masked products within a chunk, a short
@@ -14,7 +31,88 @@ multiplies (``inf * 0``) would turn that into NaN.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+
+_NEG = -1e30              # the masked logit of the blockwise version
+
+
+def attention_dims(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """(B, Hq, Hkv, g, S, T, D) of an attention call; raises on shapes that
+    do not fit."""
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape or \
+            q.shape[0] != k.shape[0] or q.shape[3] != k.shape[3]:
+        raise ValueError(f"q must be (B, Hq, S, D) and k, v (B, Hkv, T, D); "
+                         f"got q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)}")
+    b, hq, s, d = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    if hkv == 0 or hq % hkv:
+        raise ValueError(f"Hq = {hq} is not a multiple of Hkv = {hkv}")
+    return b, hq, hkv, hq // hkv, s, t, d
+
+
+def default_scale(d: int) -> float:
+    """The float32 ``1/sqrt(D)`` of the kernel and of both plain versions."""
+    return float(torch.tensor(1.0 / d ** 0.5, dtype=torch.float32))
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool = True,
+                  scale: Optional[float] = None) -> torch.Tensor:
+    """Attention in one masked product (module docstring). Returns
+    (B, Hq, S, D) in q's dtype; a fully-masked row is 0."""
+    b, hq, hkv, g, s, t, d = attention_dims(q, k, v)
+    scale = default_scale(d) if scale is None else scale
+    qf = q.float().reshape(b, hkv, g, s, d)
+    logits = torch.einsum("bhgsd,bhtd->bhgst", qf, k.float()) * scale
+    if causal:
+        mask = torch.ones((s, t), dtype=torch.bool,
+                          device=q.device).tril(t - s)
+        logits = torch.where(mask, logits,
+                             torch.full((), float("-inf"), device=q.device))
+    m = logits.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros((), device=q.device))
+    p = torch.exp(logits - m)                  # exp(-inf) = 0 where masked
+    denom = p.sum(dim=-1, keepdim=True)
+    denom = torch.where(denom == 0, torch.ones((), device=q.device), denom)
+    out = torch.einsum("bhgst,bhtd->bhgsd", p, v.float()) / denom
+    return out.reshape(b, hq, s, d).to(q.dtype)
+
+
+def attention_blockwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, scale: Optional[float] = None,
+                        block: int = 1024) -> torch.Tensor:
+    """The same function over kv blocks of ``block`` columns with an online
+    softmax (running max m, running sum l, ``l == 0 -> 1`` at the end), so
+    that no (S, T) product is held whole. Masked logits are ``-1e30`` and
+    their weights are selected to 0."""
+    b, hq, hkv, g, s, t, d = attention_dims(q, k, v)
+    scale = default_scale(d) if scale is None else scale
+    blk = min(block, t)
+    qf = q.float().reshape(b, hkv, g, s, d)
+    rows = torch.arange(s, device=q.device)[:, None]
+    zero = torch.zeros((), device=q.device)
+    m = torch.full((b, hkv, g, s, 1), _NEG, device=q.device)
+    l = torch.zeros((b, hkv, g, s, 1), device=q.device)
+    acc = torch.zeros((b, hkv, g, s, d), device=q.device)
+    for c0 in range(0, t, blk):
+        kb, vb = k[:, :, c0:c0 + blk].float(), v[:, :, c0:c0 + blk].float()
+        logits = torch.einsum("bhgsd,bhtd->bhgst", qf, kb) * scale
+        cols = c0 + torch.arange(kb.shape[2], device=q.device)[None, :]
+        mask = (cols <= rows + (t - s)) if causal else \
+            torch.ones((s, kb.shape[2]), dtype=torch.bool, device=q.device)
+        logits = torch.where(mask, logits, torch.full((), _NEG,
+                                                      device=q.device))
+        m_new = torch.maximum(m, logits.amax(dim=-1, keepdim=True))
+        p = torch.where(mask, torch.exp(logits - m_new), zero)
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("bhgst,bhtd->bhgsd", p, vb)
+        m = m_new
+    l = torch.where(l == 0, torch.ones((), device=q.device), l)
+    return (acc / l).reshape(b, hq, s, d).to(q.dtype)
 
 
 def ssd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

@@ -1,11 +1,12 @@
 """Batched serving: prompt fill + greedy decode loop.
 
     python -m repro_torch.launch.serve --arch mamba2-370m --smoke --tokens 32
+    python -m repro_torch.launch.serve --arch llama3.2-3b --tokens 32
 
-The port of ``repro.launch.serve``, with the same flags and flow: the
-weights come from seed 0, the prompts from ``SyntheticTokens`` step 0; the
-prompt is teacher-forced through ``decode_step`` (which fills the cache),
-then decoding is greedy. It runs on cuda; ``main(argv, device="cpu")`` runs
+The port of ``repro.launch.serve`` (``ssm`` and ``dense`` archs), with the
+same flags and flow: the weights come from seed 0, the prompts from
+``SyntheticTokens`` step 0; the prompt is teacher-forced through
+``decode_step`` (which fills the cache), then decoding is greedy. It runs on cuda; ``main(argv, device="cpu")`` runs
 it on the CPU.
 """
 

@@ -1,0 +1,204 @@
+"""The port's attention (plain versions, the K2 wrapper's CPU path and the
+dispatch) against the reference.
+
+The same inputs, made with numpy from a seed, go through the JAX package's
+``attention_ref`` and ``attention_blockwise``, its Pallas kernel in
+interpret mode (``flash_attention(..., interpret=True)``), and the port's
+``attention_ref``, ``attention_blockwise`` and ``flash_attention`` (whose
+CPU path is ``attention_ref``). Tolerances are those of
+``tests/test_kernels.py``: float32 3e-5, bfloat16 2e-2.
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.kernels.flash_attention import flash_attention as jflash
+from repro_torch.kernels import flash_attention as K
+from repro_torch.kernels import ops, ref
+
+# tests/test_kernels.py:20-29
+SWEEP = [(1, 4, 4, 128, 128, 64),     # MHA square
+         (2, 8, 2, 128, 128, 64),     # GQA group 4
+         (1, 8, 8, 64, 64, 128),      # wide head
+         (1, 4, 1, 96, 96, 64),       # MQA, ragged seq
+         (1, 8, 4, 1, 256, 64),       # decode: one query vs long KV
+         (2, 4, 4, 37, 37, 32)]       # odd sizes
+
+
+def tol_for(dtype):
+    return dict(atol=2e-2, rtol=2e-2) if dtype == "bfloat16" \
+        else dict(atol=3e-5, rtol=3e-5)
+
+
+def _inputs(seed, b, hq, hkv, s, t, d, dtype="float32"):
+    rng = np.random.default_rng(seed)
+    npdt = ml_dtypes.bfloat16 if dtype == "bfloat16" else np.float32
+    return tuple(rng.standard_normal(shape).astype(np.float32).astype(npdt)
+                 for shape in ((b, hq, s, d), (b, hkv, t, d), (b, hkv, t, d)))
+
+
+def _torch(a):
+    if a.dtype == ml_dtypes.bfloat16:
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,hq,hkv,s,t,d", SWEEP)
+def test_plain_versions_match_reference(b, hq, hkv, s, t, d, causal, dtype):
+    args = _inputs(b * 1000 + s + t, b, hq, hkv, s, t, d, dtype)
+    jargs = [jnp.asarray(a) for a in args]
+    targs = [_torch(a) for a in args]
+    want = _np(jref.attention_ref(*jargs, causal=causal))
+    want_blk = _np(jref.attention_blockwise(*jargs, causal=causal, block=64))
+    got = ref.attention_ref(*targs, causal=causal)
+    assert got.dtype == targs[0].dtype and tuple(got.shape) == (b, hq, s, d)
+    np.testing.assert_allclose(_np(got), want, **tol_for(dtype))
+    np.testing.assert_allclose(
+        _np(ref.attention_blockwise(*targs, causal=causal, block=64)),
+        want_blk, **tol_for(dtype))
+    np.testing.assert_allclose(_np(K.flash_attention(*targs, causal=causal)),
+                               want, **tol_for(dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,hq,hkv,s,t,d", [SWEEP[1], SWEEP[3], SWEEP[4],
+                                            SWEEP[5]],
+                         ids=["gqa", "ragged", "decode", "odd"])
+def test_plain_version_matches_pallas_kernel(b, hq, hkv, s, t, d, dtype):
+    """The reference's TPU kernel in interpret mode (jitted: it compiles
+    once instead of dispatching every grid step), blocks of 64."""
+    args = _inputs(7 + s, b, hq, hkv, s, t, d, dtype)
+    fn = jax.jit(functools.partial(jflash, causal=True, interpret=True,
+                                   block_q=64, block_k=64))
+    want = _np(fn(*map(jnp.asarray, args)))
+    got = K.flash_attention(*[_torch(a) for a in args], causal=True)
+    np.testing.assert_allclose(_np(got), want, **tol_for(dtype))
+
+
+def test_blockwise_block_invariance():
+    targs = [_torch(a) for a in _inputs(3, 1, 4, 2, 160, 160, 64)]
+    want = ref.attention_ref(*targs)
+    for blk in (32, 64, 100, 160, 1024):
+        np.testing.assert_allclose(
+            _np(ref.attention_blockwise(*targs, block=blk)), _np(want),
+            atol=2e-5, rtol=2e-5)
+
+
+def test_fully_masked_rows_give_zero():
+    """Causal with S > T: rows r < S - T see no key. The port's versions and
+    the reference's kernel give 0 there; the reference's ``attention_ref``
+    gives NaN (the difference the port's docstring states)."""
+    args = _inputs(4, 1, 4, 2, 48, 16, 32)
+    targs = [_torch(a) for a in args]
+    for out in (ref.attention_ref(*targs), K.flash_attention(*targs),
+                ref.attention_blockwise(*targs, block=8)):
+        assert torch.equal(out[:, :, :32], torch.zeros_like(out[:, :, :32]))
+        assert torch.isfinite(out).all() and out[:, :, 32:].abs().sum() > 0
+    pallas = _np(jflash(*map(jnp.asarray, args), causal=True,
+                        interpret=True, block_q=16, block_k=16))
+    np.testing.assert_array_equal(pallas[:, :, :32], 0.0)
+    np.testing.assert_allclose(_np(ref.attention_ref(*targs))[:, :, 32:],
+                               pallas[:, :, 32:], atol=3e-5, rtol=3e-5)
+    assert np.isnan(_np(jref.attention_ref(*map(jnp.asarray, args)))
+                    [:, :, :32]).all()
+
+
+def test_ops_dispatch_on_cpu(monkeypatch):
+    """S * T > 1024 * 2048 streams kv blocks; below it one product."""
+    calls = []
+    monkeypatch.setattr(ref, "attention_ref",
+                        lambda *a, **k: calls.append("ref") or a[0])
+    monkeypatch.setattr(ref, "attention_blockwise",
+                        lambda *a, **k: calls.append("blockwise") or a[0])
+    q = torch.zeros((1, 1, 1024, 16))
+    for t in (2048, 2049):
+        ops.attention(q, torch.zeros((1, 1, t, 16)),
+                      torch.zeros((1, 1, t, 16)))
+    assert calls == ["ref", "blockwise"]
+
+
+def test_ops_attention_matches_reference_blockwise_size():
+    """At S = T = 1500 both packages take their blockwise path."""
+    args = _inputs(5, 1, 2, 1, 1500, 1500, 16)
+    want = _np(jops.attention(*map(jnp.asarray, args), causal=True))
+    got = ops.attention(*[_torch(a) for a in args], causal=True)
+    np.testing.assert_allclose(_np(got), want, atol=3e-5, rtol=3e-5)
+
+
+def test_wrapper_on_cpu_takes_the_plain_version_and_counts_nothing(
+        monkeypatch):
+    calls = []
+    real = ref.attention_ref
+    monkeypatch.setattr(ref, "attention_ref",
+                        lambda *a, **k: calls.append(k) or real(*a, **k))
+    before = K.launches
+    targs = [_torch(a) for a in _inputs(6, 2, 4, 2, 9, 9, 16)]
+    K.flash_attention(*targs, causal=False, scale=0.5)
+    assert K.launches == before
+    assert calls == [dict(causal=False, scale=0.5)]
+
+
+def test_default_scale_is_float32():
+    for d in (16, 32, 64, 128):
+        assert ref.default_scale(d) == float(np.float32(1.0 / np.sqrt(d)))
+
+
+def test_cuda_tensor_never_takes_the_plain_path():
+    """A non-CPU tensor launches the kernel or raises: ``meta`` tensors
+    stand in for a device without the kernel."""
+    args = [torch.empty(s, device="meta") for s in
+            ((1, 4, 8, 16), (1, 2, 8, 16), (1, 2, 8, 16))]
+    with pytest.raises(ValueError):
+        K.flash_attention(*args)
+    with pytest.raises(ValueError):
+        ops.attention(*args)
+
+
+def test_wrapper_rejects_bad_shapes():
+    q, k, v = [_torch(a) for a in _inputs(8, 1, 6, 4, 8, 8, 16)]
+    with pytest.raises(ValueError, match="multiple"):
+        K.flash_attention(q, k, v)                  # Hq % Hkv != 0
+    with pytest.raises(ValueError):
+        K.flash_attention(q[..., :8], k, v)         # D differs
+    with pytest.raises(ValueError):
+        K.flash_attention(q[:, :4], k[:, :2], v[:, :1])
+    with pytest.raises(ValueError):
+        K.flash_attention(q[0], k[0], v[0])         # not 4-d
+    with pytest.raises(ValueError):                 # on two devices
+        K.flash_attention(q[:, :4], k[:, :2], v[:, :2].to("meta"))
+
+
+def test_kernel_input_checks():
+    """What the CUDA path takes: one dtype of float32 / bfloat16, D in
+    {16, 32, 64, 128}, a contiguous d dimension; any other strides, so the
+    model's (B, S, H, D) projections pass as (B, H, S, D) views."""
+    x = torch.zeros((2, 10, 6, 64))                 # (B, S, H, D)
+    q = x.transpose(1, 2)
+    kv = torch.zeros((2, 10, 3, 64)).transpose(1, 2)
+    assert K.kernel_strides(q, kv, kv) == (3840, 64, 384, 1920, 64, 192,
+                                           1920, 64, 192)
+    with pytest.raises(ValueError, match="dtype"):
+        K.kernel_strides(q.half(), kv.half(), kv.half())
+    with pytest.raises(ValueError, match="dtype"):
+        K.kernel_strides(q, kv.bfloat16(), kv)
+    with pytest.raises(ValueError, match="head dim"):
+        K.kernel_strides(q[..., :48], kv[..., :48], kv[..., :48])
+    with pytest.raises(ValueError, match="contiguous"):
+        K.kernel_strides(q.transpose(2, 3).contiguous().transpose(2, 3),
+                         kv, kv)

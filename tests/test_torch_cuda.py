@@ -1,7 +1,8 @@
 """Port tests that need an NVIDIA GPU (marker ``cuda``): the hand-written
-kernels (the round step K1, the SSD scan K3) against their plain PyTorch
-versions, small broadcasts on the card against the same broadcasts on the
-CPU, and the Mamba-2 LM on the card against the CPU. They skip on a host
+kernels (the round step K1, flash attention K2, the SSD scan K3) against
+their plain PyTorch versions, small broadcasts on the card against the same
+broadcasts on the CPU, and the Mamba-2 and dense LMs on the card against
+the CPU. They skip on a host
 without a GPU; on the card run them with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -199,3 +200,104 @@ def test_lm_on_card_matches_cpu(gpu):
         a = cpu.decode_step(c_cpu, toks[:, t:t + 1])[0]
         b = card.decode_step(c_card, toks[:, t:t + 1])[0]
         torch.testing.assert_close(b.cpu(), a, atol=1e-4, rtol=1e-4)
+
+
+# tests/test_kernels.py:20-29, plus the smoke configs' head dim 16 and S > T
+ATTN_SHAPES = [(1, 4, 4, 128, 128, 64), (2, 8, 2, 128, 128, 64),
+               (1, 8, 8, 64, 64, 128), (1, 4, 1, 96, 96, 64),
+               (1, 8, 4, 1, 256, 64), (2, 4, 4, 37, 37, 32),
+               (2, 4, 2, 70, 70, 16), (1, 4, 2, 100, 60, 64)]
+
+
+def _attn_inputs(gpu, seed, b, hq, hkv, s, t, d, dtype):
+    g = torch.Generator(device=gpu).manual_seed(seed)
+    return tuple(torch.randn(shape, device=gpu, generator=g).to(dtype)
+                 for shape in ((b, hq, s, d), (b, hkv, t, d), (b, hkv, t, d)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,hq,hkv,s,t,d", ATTN_SHAPES)
+def test_attention_kernel_matches_plain(gpu, dtype, causal, b, hq, hkv, s, t,
+                                        d):
+    """K2 against ``attention_ref`` on the card; tolerances of
+    ``tests/test_kernels.py`` (float32 3e-5, bf16 2e-2); fully-masked rows
+    (causal, S > T) exactly 0."""
+    from repro_torch.kernels import flash_attention as K
+    from repro_torch.kernels import ref
+
+    args = _attn_inputs(gpu, s + t + d, b, hq, hkv, s, t, d,
+                        getattr(torch, dtype))
+    before = K.launches
+    got = K.flash_attention(*args, causal=causal)
+    torch.cuda.synchronize()
+    assert K.launches == before + 1 and got.dtype == args[0].dtype
+    want = ref.attention_ref(*args, causal=causal)
+    tol = 2e-2 if dtype == "bfloat16" else 3e-5
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    if causal and s > t:
+        assert not got[:, :, :s - t].any()
+
+
+def test_attention_kernel_reads_model_layout_by_strides(gpu):
+    """q, k, v as (B, H, S, D) views of (B, S, H, D) projections: no copy,
+    and the output has q's strides."""
+    from repro_torch.kernels import flash_attention as K
+    from repro_torch.kernels import ref
+
+    g = torch.Generator(device=gpu).manual_seed(9)
+    x = torch.randn(2, 50, 8, 32, device=gpu, generator=g)
+    kv = torch.randn(2, 2, 50, 4, 32, device=gpu, generator=g)
+    q, k, v = x.transpose(1, 2), kv[0].transpose(1, 2), kv[1].transpose(1, 2)
+    got = K.flash_attention(q, k, v)
+    assert got.stride() == q.stride()
+    torch.testing.assert_close(got, ref.attention_ref(q, k, v), atol=3e-5,
+                               rtol=3e-5)
+
+
+def test_attention_kernel_rejects_bad_inputs(gpu):
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    q, k, v = _attn_inputs(gpu, 1, 1, 4, 2, 16, 16, 64, torch.float32)
+    with pytest.raises(ValueError):              # float16
+        flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError):              # mixed dtypes
+        flash_attention(q, k.bfloat16(), v)
+    with pytest.raises(ValueError):              # head dim 48
+        flash_attention(q[..., :48], k[..., :48], v[..., :48])
+    with pytest.raises(ValueError):              # d not contiguous
+        flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3), k, v)
+    with pytest.raises(ValueError):              # k on the CPU
+        flash_attention(q, k.cpu(), v)
+    with pytest.raises(ValueError):              # Hq % Hkv
+        flash_attention(q[:, :3], k, v)
+
+
+def test_dense_lm_on_card_matches_cpu(gpu):
+    """The smoke llama3.2-3b in float32 with the full config's TP padding:
+    one K2 launch per layer in a prefill, the prefill's logits and cache and
+    the decode logits equal to the CPU run (1e-4)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as K
+    from repro_torch.models.model import LM
+
+    cfg = get_config("llama3.2-3b").smoke().scaled(dtype="float32",
+                                                   tp_pad=16)
+    cpu, card = LM(cfg, device="cpu"), LM(cfg, device=gpu)
+    card.load_state_dict(cpu.state_dict())
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 40)).astype(np.int32))
+    c_cpu, c_card = cpu.init_cache(2, 44), card.init_cache(2, 44)
+    before = K.launches
+    got, _ = card.prefill(dict(tokens=toks), c_card)
+    assert K.launches - before == cfg.layers
+    want, _ = cpu.prefill(dict(tokens=toks), c_cpu)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    for key in ("k", "v"):
+        torch.testing.assert_close(c_card[key].cpu(), c_cpu[key], atol=1e-4,
+                                   rtol=1e-4)
+    for t in range(4):
+        a = cpu.decode_step(c_cpu, toks[:, t:t + 1])[0]
+        b = card.decode_step(c_card, toks[:, t:t + 1])[0]
+        torch.testing.assert_close(b.cpu(), a, atol=1e-4, rtol=1e-4)
+    assert K.launches - before == cfg.layers
