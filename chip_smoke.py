@@ -7,7 +7,9 @@ Phases, each of which exits non-zero on failure:
 
 1. build every CUDA kernel of the main paths with ``nvcc`` (sm_90a), all
    sources at once: ``permute_step`` (K1), ``flash_attention`` (K2) and
-   ``ssd_scan`` (K3);
+   ``ssd_scan`` (K3); print ptxas's registers and spills, and each K2
+   instance's shared memory (bf16 tensor-core and float32 FMA kernels, four
+   head dims each); a bf16 K2 instance that spills fails;
 2. hold K1 bit-exact against its plain PyTorch version on the card:
    random tables with every edge case, float32 and bfloat16 payloads, and a
    buffer over 2**31 bytes;
@@ -50,9 +52,13 @@ Phases, each of which exits non-zero on failure:
    reference's attention init, where ``attention_blockwise`` is held
    against ``attention_ref`` beside K2 (a reading: why the port's init is
    the fan-in); ``serve.main --arch llama3.2-3b`` to (4, 32) greedy tokens;
-11. K2's timing at the prefill shape: its bound (operations), the plain
-   version and ``scaled_dot_product_attention`` as the library yardstick
-   (timed here only; the port never calls it); prefill time, decode time
+11. K2's timing at the prefill shape (an eager loop of five launches, the
+   wrapper's host work included; a CUDA graph of five beside it, and the
+   wrapper's host time per call): its bound (operations), TFLOP/s, share
+   of the bound, the plain version and ``scaled_dot_product_attention`` as
+   the library yardstick (timed both ways here only; the port never calls
+   it) and K2's ratio to it; the
+   float32 FMA kernel once at the same shape; prefill time, decode time
    after a 4 x 2048 prefill, serve's tokens/s; a ``torch.profiler`` window
    over one dense prefill and the four decode steps after it.
 
@@ -62,8 +68,10 @@ GPU, or without the repo beside it, it exits non-zero and prints no result.
 """
 
 import contextlib
+import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -74,6 +82,7 @@ MAIN_NBYTES = 16 << 20
 # HBM rates of the SXM data sheets (bytes/s), by the name nvidia-smi reports
 MEM_RATE = (("H200", 4.8e12), ("H100", 3.35e12))
 BF16_PEAK = 989e12        # dense bf16 tensor-core FLOP/s (H100/H200 SXM)
+FP32_PEAK = 67e12         # float32 FLOP/s outside the tensor cores (H100 SXM)
 # the Mamba-2 370M prefill: batch, sequence, heads, head dim, state, chunk
 SSD_MAIN = (4, 2048, 32, 64, 128, 128)
 # the llama3.2-3b prefill's attention: batch, q heads (the TP padding's 32
@@ -119,17 +128,72 @@ def cuda_ms(fn):
     return start.elapsed_time(end)
 
 
-def phase_build():
+def graph_ms(torch, fn, reps):
+    """Milliseconds per call of ``fn``, ``reps`` calls captured in one CUDA
+    graph and replayed (min of 3), so the host's launch cost is left out."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    ms = min(cuda_ms(graph.replay) for _ in range(3)) / reps
+    del graph
+    return ms
+
+
+def k2_instances(report, smem):
+    """(instance, registers, spill stores, spill loads, static and dynamic
+    shared memory in B) of every K2 kernel in the ptxas report ``report``
+    (``-Xptxas -v``); ``smem(D, is_bf16)`` gives the dynamic size."""
+    out, name, spills = [], None, (None, None)
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '[^']*(attn_tc|attn_fma)"
+                      r"ILi(\d+)E", line)
+        if m:
+            name = (m.group(1), int(m.group(2)))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+        if m and name:
+            kind, d = name
+            bf16 = kind == "attn_tc"
+            out.append((f"{kind}<{d}> ({'bf16' if bf16 else 'float32'})",
+                        int(m.group(1)), *spills, int(m.group(2) or 0),
+                        smem(d, int(bf16))))
+            name = None
+    return out
+
+
+def phase_build(FA):
     from repro_torch import nvcc
     t0 = time.perf_counter()
     names = ["permute_step", "flash_attention", "ssd_scan"]
     nvcc.build(names)
     log(f"[build] {', '.join(names)} built in "
         f"{time.perf_counter() - t0:.3f} s")
-    for name in names:
+    for name in ("permute_step", "ssd_scan"):
         for line in nvcc.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build]   {name}: {line.strip()}")
+    smem = (ctypes.c_int * (2 * len(FA.HEAD_DIMS))).in_dll(
+        FA._kernel(), "flash_attention_smem")
+    rows = k2_instances(nvcc.build_log("flash_attention"), lambda d, bf16:
+                        smem[bf16 * len(FA.HEAD_DIMS) + FA.HEAD_DIMS.index(d)])
+    if len(rows) != 2 * len(FA.HEAD_DIMS):
+        fail(f"the ptxas report names {len(rows)} K2 kernels, expected "
+             f"{2 * len(FA.HEAD_DIMS)}")
+    for inst, regs, st, ld, static, dyn in rows:
+        log(f"[build]   flash_attention {inst}: {regs} registers, spill "
+            f"stores {st} B, spill loads {ld} B, shared memory {static} B "
+            f"static + {dyn} B dynamic")
+        if (st or ld) and "bf16" in inst:
+            fail(f"flash_attention {inst} spills registers")
 
 
 def max_byte_diff(torch, a, b):
@@ -281,14 +345,8 @@ def phase_timing(np, torch, rs, runner, ex, x, lay, rate):
     bound_ms = nbytes / rate * 1e3 / nl
 
     buf = runner.pack(x, lay, ex.root, dev)
-    for t in flat_tabs[:d]:                       # warm-up
-        rs.permute_step(buf, t)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for t in flat_tabs:
-            rs.permute_step(buf, t)
-    graph.replay()
-    kernel_ms = min(cuda_ms(graph.replay) for _ in range(3)) / nl
+    kernel_ms = graph_ms(torch, lambda: [rs.permute_step(buf, t)
+                                         for t in flat_tabs], 1) / nl
     eager_ms = min(cuda_ms(lambda: runner.run_cycles(buf, tabs))
                    for _ in range(2)) / nl
 
@@ -308,7 +366,7 @@ def phase_timing(np, torch, rs, runner, ex, x, lay, rate):
             flat.index_copy_(0, d_rows, flat.index_select(0, s_rows))
     library()
     library_ms = min(cuda_ms(library) for _ in range(2)) / nl
-    del graph, buf, flat
+    del buf, flat
     return dict(ms=kernel_ms, eager_ms=eager_ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=bound_ms, bytes=nbytes,
                 launches_timed=nl)
@@ -593,7 +651,8 @@ def profile_window(torch, fn, what):
     kinds = {"flash_attention (K2)": 0.0, "ssd_scan (K3)": 0.0,
              "matmul": 0.0, "other": 0.0}
     for n, us in by_name.items():
-        k = "flash_attention (K2)" if "attn_kernel" in n else \
+        k = "flash_attention (K2)" if "attn_tc" in n or "attn_fma" in n \
+            else \
             "ssd_scan (K3)" if "ssd_scan" in n else \
             "matmul" if any(w in n.lower() for w in (
                 "gemm", "gemv", "nvjet", "xmma", "cutlass")) else "other"
@@ -842,6 +901,14 @@ def attn_pairs(s, t, causal):
 
 
 def phase_attn_timing(torch, FA, ref, rate):
+    """K2 at the prefill shape in bf16 (the tensor-core kernel) against its
+    bound, its plain version and SDPA. K2 and SDPA are each timed as an
+    eager loop of five calls (``ms``, ``library_ms``: the wrapper's host
+    work per call included) and as a CUDA graph of five calls
+    (``graph_ms``, ``library_graph_ms``: device time only); ``host_ms`` is
+    the wrapper's host time per call, 20 calls issued back to back without
+    waiting for the card. Then the float32 FMA kernel once at the same
+    shape, against its own bound (the FMA units' 67 TFLOP/s)."""
     b, hq, hkv, s, t, d = ATTN_MAIN
     args = attn_inputs(torch, *ATTN_MAIN, torch.bfloat16, 40)
     o = FA.flash_attention(*args)
@@ -850,9 +917,21 @@ def phase_attn_timing(torch, FA, ref, rate):
     bound_ms = max(nbytes / rate, flops / BF16_PEAK) * 1e3
     bound_by = "bytes" if nbytes / rate >= flops / BF16_PEAK else "operations"
     reps = 5
-    kernel_ms = min(cuda_ms(lambda: [FA.flash_attention(*args)
-                                     for _ in range(reps)])
-                    for _ in range(2)) / reps
+
+    def eager_ms(fn):
+        return min(cuda_ms(lambda: [fn() for _ in range(reps)])
+                   for _ in range(2)) / reps
+
+    def kernel():
+        return FA.flash_attention(*args)
+    kernel_ms = eager_ms(kernel)
+    kernel_graph_ms = graph_ms(torch, kernel, reps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        kernel()
+    host_ms = (time.perf_counter() - t0) * 1e3 / 20
+    torch.cuda.synchronize()
     plain_ms = min(cuda_ms(lambda: ref.attention_ref(*args))
                    for _ in range(2))
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -860,17 +939,37 @@ def phase_attn_timing(torch, FA, ref, rate):
     def library():
         return sdpa(*args, is_causal=True, enable_gqa=True)
     lib_err = float((library().float() - o.float()).abs().max())
-    library_ms = min(cuda_ms(lambda: [library() for _ in range(reps)])
-                     for _ in range(2)) / reps
+    library_ms = eager_ms(library)
+    library_graph_ms = graph_ms(torch, library, reps)
     log(f"[timing] flash_attention at {ATTN_MAIN} (B, Hq, Hkv, S, T, D), "
-        f"bf16, causal: kernel {kernel_ms!r} ms per launch, bound "
+        f"bf16, causal: kernel {kernel_ms!r} ms per launch (eager loop of "
+        f"{reps}; CUDA graph of {reps}: {kernel_graph_ms!r} ms; the "
+        f"wrapper's host time {host_ms!r} ms a call), bound "
         f"{bound_ms!r} ms ({bound_by}: {flops} FLOP at 989 TFLOP/s, "
         f"{nbytes} B at {rate / 1e12:.2f} TB/s), plain {plain_ms!r} ms, "
-        f"scaled_dot_product_attention {library_ms!r} ms (yardstick; "
+        f"scaled_dot_product_attention {library_ms!r} ms (eager; CUDA "
+        f"graph {library_graph_ms!r} ms; yardstick; "
         f"max |sdpa - kernel| {lib_err!r}); kernel at "
-        f"{flops / kernel_ms / 1e9!r} TFLOP/s")
-    return dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=library_ms)
+        f"{flops / kernel_ms / 1e9!r} TFLOP/s eager, "
+        f"{flops / kernel_graph_ms / 1e9!r} in the graph; "
+        f"{bound_ms / kernel_ms!r} / {bound_ms / kernel_graph_ms!r} of its "
+        f"bound; {kernel_ms / library_ms!r} times SDPA's time eager, "
+        f"{kernel_graph_ms / library_graph_ms!r} in graphs")
+    del args, o
+    args = attn_inputs(torch, *ATTN_MAIN, torch.float32, 41)
+    f32_ms = min(cuda_ms(lambda: FA.flash_attention(*args))
+                 for _ in range(2))
+    f32_bound = max(2 * nbytes / rate, flops / FP32_PEAK) * 1e3
+    log(f"[timing] flash_attention at {ATTN_MAIN}, float32 (FMA kernel), "
+        f"causal: {f32_ms!r} ms per launch, {flops / f32_ms / 1e9!r} "
+        f"TFLOP/s; bound on the FMA units {f32_bound!r} ms ({flops} FLOP at "
+        f"67 TFLOP/s), {f32_bound / f32_ms!r} of it")
+    del args
+    torch.cuda.empty_cache()
+    return dict(ms=kernel_ms, graph_ms=kernel_graph_ms, host_ms=host_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms, library_graph_ms=library_graph_ms,
+                f32_ms=f32_ms)
 
 
 def main():
@@ -904,7 +1003,7 @@ def main():
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     rate = mem_rate(name)
 
-    phase_build()
+    phase_build(FA)
     max_err = phase_kernel_vs_plain(np, torch, rs)
     K.launches = FA.launches = 0
     ex, x, lay, launches, secs = phase_main(torch, rs, api, T)
@@ -962,9 +1061,12 @@ def main():
     at = phase_attn_timing(torch, FA, ref, rate)
     ddec = phase_decode_timing(torch, dense, serve, SyntheticTokens, dcfg)
     phase_profile(torch, dense, dcfg, SyntheticTokens)
-    log(f"[summary] {name}: K2 {at['ms']!r} ms per launch x "
-        f"{dpf['launches']} launches per prefill (bound {at['bound_ms']!r} "
-        f"ms, sdpa {at['library_ms']!r} ms); llama3.2-3b prefill 4x2048 "
+    log(f"[summary] {name}: K2 {at['ms']!r} ms per launch (eager; "
+        f"{at['graph_ms']!r} ms in a CUDA graph) x {dpf['launches']} "
+        f"launches per prefill (bound {at['bound_ms']!r} ms, sdpa "
+        f"{at['library_ms']!r} ms eager, {at['library_graph_ms']!r} ms in a "
+        f"graph; float32 FMA kernel "
+        f"{at['f32_ms']!r} ms); llama3.2-3b prefill 4x2048 "
         f"{dpf['ms']!r} ms ({4 * 2048 / dpf['ms'] * 1e3!r} tokens/s), peak "
         f"{dpf['peak']} B; decode {ddec['step_ms']!r} ms per step; serve "
         f"{ddec['tok_per_s']!r} tok/s")
@@ -983,7 +1085,9 @@ def main():
         "launches": dpf["launches"], "max_abs_err": attn_err,
         "ms": at["ms"], "plain_ms": at["plain_ms"],
         "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
-        "library_ms": at["library_ms"],
+        "library_ms": at["library_ms"], "graph_ms": at["graph_ms"],
+        "library_graph_ms": at["library_graph_ms"],
+        "host_ms": at["host_ms"],
     }, {
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/ssd_scan.cu",

@@ -7,15 +7,22 @@ reference's Pallas kernel (``repro.kernels.flash_attention``): q
 columns ``c <= r + (T - S)``; scale ``1/sqrt(D)`` (float32) unless given;
 float32 accumulation; a fully-masked row gives 0; the output in q's dtype.
 
-On a CUDA tensor it launches ``csrc/flash_attention.cu`` (one block per
-(batch, q head, 64 query rows), the kv loop inside the block) on the current
-stream and counts the launch in ``launches``; the kernel takes float32 or
-bfloat16 and D in {16, 32, 64, 128}, and reads every tensor by strides as
-long as its last (d) stride is 1, so the model's (B, S, H, D) projections
-viewed as (B, H, S, D) need no copy; the output has q's strides. On a CPU
-tensor it runs the plain version ``repro_torch.kernels.ref.attention_ref``;
-on any other device, or on inputs the kernel does not take, it raises. It
-never falls back from the kernel to the plain version.
+On a CUDA tensor it launches ``csrc/flash_attention.cu`` on the current
+stream and counts the launch in ``launches``. The kernel is chosen by dtype
+inside the one entry point: bfloat16 runs on the tensor cores (persistent
+blocks, one per SM, take (batch, q head, 128 query rows) items from a
+counter this wrapper zeroes; in each, a TMA producer warpgroup and two
+wgmma consumer warpgroups of 64 rows, P rounded to bfloat16 for P.V);
+float32 runs exact on the FMA units (one block per (batch, q head, 64 query
+rows)). Both take D in {16, 32, 64, 128} and read every tensor by strides
+as long as its last (d) stride is 1, so the model's (B, S, H, D)
+projections viewed as (B, H, S, D) need no copy; the output has q's
+strides. bfloat16 inputs also need what TMA needs: 16-byte-aligned base
+addresses and strides that are multiples of 16 bytes. On a CPU tensor it
+runs the plain version ``repro_torch.kernels.ref.attention_ref``; on any
+other device, or on inputs the kernel does not take, it raises. It never
+falls back from the kernel to the plain version, nor from one kernel to
+the other.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ from repro_torch.kernels import ref
 HEAD_DIMS = (16, 32, 64, 128)
 
 launches = 0               # kernel launches of flash_attention since reset
+_MAP_ERROR = 10000         # the C entry's code for a tensor map it cannot build
 
 _lib = None
 
@@ -42,7 +50,8 @@ def _kernel():
         lib = load("flash_attention")
         lib.flash_attention.argtypes = [ctypes.c_void_p] * 4 + \
             [ctypes.c_int] * 6 + [ctypes.c_void_p, ctypes.c_float,
-                                  ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                                  ctypes.c_int, ctypes.c_int,
+                                  ctypes.c_void_p, ctypes.c_void_p]
         lib.flash_attention.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -51,8 +60,10 @@ def _kernel():
 def kernel_strides(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    ) -> Tuple[int, ...]:
     """Checks that the kernel takes these inputs (one dtype, float32 or
-    bfloat16; D in ``HEAD_DIMS``; d stride 1; sizes in int32) and returns
-    the (batch, head, row) strides of q, k and v, in elements."""
+    bfloat16; D in ``HEAD_DIMS``; d stride 1; sizes in int32; at least one
+    key; for bfloat16, TMA's 16-byte-aligned base addresses and strides)
+    and returns the (batch, head, row) strides of q, k and v, in
+    elements."""
     if q.dtype not in (torch.float32, torch.bfloat16) or \
             k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"q, k and v must share one dtype, float32 or "
@@ -67,6 +78,14 @@ def kernel_strides(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if max(t.shape) >= 2 ** 31:
             raise ValueError(f"{name} has a dimension past int32: "
                              f"{tuple(t.shape)}")
+        if t.dtype == torch.bfloat16 and (
+                t.data_ptr() % 16 or any(x * 2 % 16 for x in t.stride()[:3])):
+            raise ValueError(f"{name} must have a 16-byte-aligned base "
+                             f"address and strides of 16-byte multiples "
+                             f"(TMA); address {t.data_ptr()}, strides "
+                             f"{t.stride()}")
+    if k.shape[2] == 0:
+        raise ValueError("k and v have no keys (T = 0)")
     return tuple(s for t in (q, k, v) for s in t.stride()[:3])
 
 
@@ -92,12 +111,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return o
     lib = _kernel()
     arr = (ctypes.c_longlong * 12)(*strides, *o.stride()[:3])
+    bf16 = q.dtype == torch.bfloat16
+    # the bf16 kernel's work counter: persistent blocks take items from it
+    counter = torch.zeros(1, dtype=torch.int32, device=q.device) if bf16 \
+        else None
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                  o.data_ptr(), b, hq, hkv, s, t, d, arr,
-                                 scale, int(causal),
-                                 int(q.dtype == torch.bfloat16), stream)
+                                 scale, int(causal), int(bf16),
+                                 counter.data_ptr() if bf16 else None,
+                                 stream)
+    if rc >= _MAP_ERROR:
+        raise RuntimeError(f"flash_attention: cuTensorMapEncodeTiled failed "
+                           f"with CUresult {rc - _MAP_ERROR}")
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {rc}")

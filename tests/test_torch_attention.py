@@ -202,3 +202,71 @@ def test_kernel_input_checks():
     with pytest.raises(ValueError, match="contiguous"):
         K.kernel_strides(q.transpose(2, 3).contiguous().transpose(2, 3),
                          kv, kv)
+    with pytest.raises(ValueError, match="no keys"):
+        K.kernel_strides(q, kv[:, :, :0], kv[:, :, :0])
+    # bfloat16 goes through TMA: 16-byte-aligned bases, 16-byte strides
+    qb, kvb = q.bfloat16(), kv.bfloat16()
+    assert K.kernel_strides(qb, kvb, kvb) == K.kernel_strides(q, kv, kv)
+    odd = torch.zeros((2, 10, 6, 66))[..., :64].transpose(1, 2)
+    assert K.kernel_strides(odd, kv, kv)[:3] == (3960, 66, 396)
+    with pytest.raises(ValueError, match="16-byte"):      # rows of 132 B
+        K.kernel_strides(torch.zeros((2, 10, 6, 66), dtype=torch.bfloat16)
+                         [..., :64].transpose(1, 2), kvb, kvb)
+    shifted = torch.zeros(qb.numel() + 1, dtype=torch.bfloat16)[1:]
+    shifted = shifted.view(2, 10, 6, 64).transpose(1, 2)     # base + 2 B
+    with pytest.raises(ValueError, match="16-byte"):
+        K.kernel_strides(shifted, kvb, kvb)
+    with pytest.raises(ValueError, match="16-byte"):
+        K.kernel_strides(qb, kvb, shifted[:, :3])
+
+
+LOG2E = 1.4426950408889634
+
+
+def _tensor_core_emulation(q, k, v, causal=True, bk=128):
+    """The bf16 kernel's arithmetic in plain torch: 128-key tiles, logits
+    scaled by the float32 ``scale * log2 e`` and exponentiated with exp2,
+    masks as selects (-1e30, then p = 0), float32 m, l and accumulator, and
+    P rounded to bfloat16 before P.V."""
+    b, hq, hkv, g, s, t, d = ref.attention_dims(q, k, v)
+    scale2 = float(np.float32(ref.default_scale(d)) * np.float32(LOG2E))
+    qf = q.float().reshape(b, hkv, g, s, d)
+    rows = torch.arange(s)[:, None]
+    m = torch.full((b, hkv, g, s, 1), -1e30)
+    l = torch.zeros((b, hkv, g, s, 1))
+    acc = torch.zeros((b, hkv, g, s, d))
+    for k0 in range(0, t, bk):
+        kb, vb = k[:, :, k0:k0 + bk].float(), v[:, :, k0:k0 + bk].float()
+        cols = k0 + torch.arange(kb.shape[2])[None, :]
+        ok = cols <= rows + (t - s) if causal else \
+            torch.ones((s, kb.shape[2]), dtype=torch.bool)
+        x = torch.where(ok, torch.einsum("bhgsd,bhtd->bhgst", qf, kb) *
+                        scale2, torch.full((), -1e30))
+        mn = torch.maximum(m, x.amax(dim=-1, keepdim=True))
+        p = torch.where(ok, torch.exp2(x - mn), torch.zeros(()))
+        alpha = torch.exp2(m - mn)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("bhgst,bhtd->bhgsd",
+                                         p.bfloat16().float(), vb)
+        m = mn
+    l = torch.where(l == 0, torch.ones(()), l)
+    return (acc / l).reshape(b, hq, s, d).to(q.dtype)
+
+
+@pytest.mark.parametrize("s,t", [(512, 512), (300, 200)],
+                         ids=["square", "s_over_t"])
+def test_tensor_core_arithmetic_within_bf16_tolerance(s, t):
+    """The bf16 kernel rounds P to bfloat16 before P.V and works in the
+    log2 domain: emulated in plain torch at D 128, causal, its output stays
+    within the bf16 tolerance (2e-2 abs + rel) of ``attention_ref``, the
+    fully-masked rows of S > T exactly 0."""
+    targs = [_torch(a) for a in _inputs(11 + s, 1, 4, 2, s, t, 128,
+                                        "bfloat16")]
+    got = _tensor_core_emulation(*targs)
+    want = ref.attention_ref(*targs)
+    np.testing.assert_allclose(_np(got), _np(want), **tol_for("bfloat16"))
+    if s > t:
+        assert not got[:, :, :s - t].any()
+    # the bf16 rounding of P is visible, and small against the tolerance
+    exact = _tensor_core_emulation(*[x.float() for x in targs]).float()
+    assert 0 < float((exact - want.float()).abs().max()) < 2e-2

@@ -202,11 +202,20 @@ def test_lm_on_card_matches_cpu(gpu):
         torch.testing.assert_close(b.cpu(), a, atol=1e-4, rtol=1e-4)
 
 
-# tests/test_kernels.py:20-29, plus the smoke configs' head dim 16 and S > T
+# tests/test_kernels.py:20-29, plus the smoke configs' head dim 16 and S > T;
+# then shapes that cross the bf16 kernel's 128-row and 128-key tiles: ragged
+# S = T at every head dim, the decode offset against T = 2048, and S > T,
+# where with S - T >= 128 a whole tile of 128 query rows sees no key
 ATTN_SHAPES = [(1, 4, 4, 128, 128, 64), (2, 8, 2, 128, 128, 64),
                (1, 8, 8, 64, 64, 128), (1, 4, 1, 96, 96, 64),
                (1, 8, 4, 1, 256, 64), (2, 4, 4, 37, 37, 32),
-               (2, 4, 2, 70, 70, 16), (1, 4, 2, 100, 60, 64)]
+               (2, 4, 2, 70, 70, 16), (1, 4, 2, 100, 60, 64),
+               (1, 4, 2, 300, 300, 128), (1, 4, 2, 1000, 1000, 128),
+               (1, 4, 2, 300, 300, 64), (1, 4, 2, 1000, 1000, 64),
+               (1, 4, 2, 300, 300, 32), (1, 4, 2, 300, 300, 16),
+               (2, 4, 2, 1, 2048, 128), (2, 4, 2, 16, 2048, 128),
+               (2, 4, 2, 300, 200, 128), (2, 4, 2, 300, 100, 128),
+               (2, 4, 2, 300, 100, 64)]
 
 
 def _attn_inputs(gpu, seed, b, hq, hkv, s, t, d, dtype):
@@ -255,6 +264,24 @@ def test_attention_kernel_reads_model_layout_by_strides(gpu):
                                rtol=3e-5)
 
 
+def test_attention_kernel_reads_model_layout_by_strides_bf16(gpu):
+    """The bf16 kernel's TMA maps over the (B, H, S, D) views of (B, S, H,
+    D) projections, across its 128-row and 128-key tiles: no copy, q's
+    strides on the output."""
+    from repro_torch.kernels import flash_attention as K
+    from repro_torch.kernels import ref
+
+    g = torch.Generator(device=gpu).manual_seed(10)
+    x = torch.randn(2, 300, 8, 128, device=gpu, generator=g).bfloat16()
+    kv = torch.randn(2, 2, 300, 4, 128, device=gpu, generator=g).bfloat16()
+    q, k, v = x.transpose(1, 2), kv[0].transpose(1, 2), kv[1].transpose(1, 2)
+    got = K.flash_attention(q, k, v)
+    assert got.stride() == q.stride()
+    torch.testing.assert_close(got.float(),
+                               ref.attention_ref(q, k, v).float(),
+                               atol=2e-2, rtol=2e-2)
+
+
 def test_attention_kernel_rejects_bad_inputs(gpu):
     from repro_torch.kernels.flash_attention import flash_attention
 
@@ -271,6 +298,14 @@ def test_attention_kernel_rejects_bad_inputs(gpu):
         flash_attention(q, k.cpu(), v)
     with pytest.raises(ValueError):              # Hq % Hkv
         flash_attention(q[:, :3], k, v)
+    qb = q.bfloat16()
+    with pytest.raises(ValueError, match="16-byte"):   # row stride of 66
+        flash_attention(torch.zeros((1, 4, 16, 66), dtype=torch.bfloat16,
+                                    device=gpu)[..., :64],
+                        k.bfloat16(), v.bfloat16())
+    with pytest.raises(ValueError, match="16-byte"):   # base address + 2 B
+        flash_attention(qb.flatten()[1:3841].view(1, 4, 15, 64),
+                        k.bfloat16(), v.bfloat16())
 
 
 def test_dense_lm_on_card_matches_cpu(gpu):
