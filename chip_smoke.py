@@ -7,9 +7,11 @@ Phases, each of which exits non-zero on failure:
 
 1. build every CUDA kernel of the main paths with ``nvcc`` (sm_90a), all
    sources at once: ``permute_step`` (K1), ``flash_attention`` (K2) and
-   ``ssd_scan`` (K3); print ptxas's registers and spills, and each K2
-   instance's shared memory (bf16 tensor-core and float32 FMA kernels, four
-   head dims each); a bf16 K2 instance that spills fails;
+   ``ssd_scan`` (K3); print ptxas's registers and spills, and each K2 and
+   K3 instance's shared memory (K2: bf16 tensor-core and float32 FMA
+   kernels, four head dims each; K3: ``ssd_tc<dh, ds>`` for bf16, twelve
+   instances, and the float32 FMA kernel); a bf16 instance that spills
+   fails;
 2. hold K1 bit-exact against its plain PyTorch version on the card:
    random tables with every edge case, float32 and bfloat16 payloads, and a
    buffer over 2**31 bytes;
@@ -24,15 +26,19 @@ Phases, each of which exits non-zero on failure:
    ``index_select``/``index_copy_`` yardstick;
 6. hold K3 against its plain version (``ssd_chunked``) on the card: the
    Mamba-2 370M prefill shape in bf16, a ragged sequence, float32, the
-   overflow regime (dt = 2, A = -1, where a multiplied mask gives NaN), and
-   chunk invariance;
+   overflow regime (dt = 2, A = -1, where a multiplied mask gives NaN),
+   chunk invariance in float32 and bf16, short and ragged bf16 chunks (8,
+   37, 16), many waves of items (4 x 4096 x 32 heads), two bf16 launches
+   bit-identical, and a ValueError for bf16 shapes the kernel does not take;
 7. the serving path of Mamba-2 370M at full width (48 layers, random
    weights from seed 0): ``LM.prefill`` of 4 x 2048 ``SyntheticTokens`` with
    exactly one K3 launch per layer, finite logits, held against a prefill
    through the plain SSD; teacher-forced ``decode_step`` against
    ``forward`` over 4 x 256 tokens, in bf16 and in float32; and
    ``serve.main`` to (4, 32) greedy tokens;
-8. K3's timing at the prefill shape (its bound, the plain version), prefill
+8. K3's timing at the prefill shape (an eager loop of 20 launches; a CUDA
+   graph of 20 and the wrapper's host time beside it; its bound, TFLOP/s,
+   share of the bound, the plain version, the float32 FMA kernel), prefill
    and decode times, serve's tokens/s and the prefill's peak memory; then
    a ``torch.profiler`` window over one prefill and over four decode steps
    (the device's busy share and kernel time by kind);
@@ -143,16 +149,15 @@ def graph_ms(torch, fn, reps):
     return ms
 
 
-def k2_instances(report, smem):
-    """(instance, registers, spill stores, spill loads, static and dynamic
-    shared memory in B) of every K2 kernel in the ptxas report ``report``
-    (``-Xptxas -v``); ``smem(D, is_bf16)`` gives the dynamic size."""
+def ptxas_kernels(report, pattern):
+    """(match of ``pattern`` in the mangled name, registers, spill stores,
+    spill loads, static shared memory in B) of every kernel in the ptxas
+    report ``report`` (``-Xptxas -v``) whose name matches ``pattern``."""
     out, name, spills = [], None, (None, None)
     for line in report.splitlines():
-        m = re.search(r"Compiling entry function '[^']*(attn_tc|attn_fma)"
-                      r"ILi(\d+)E", line)
+        m = re.search(r"Compiling entry function '([^']*)'", line)
         if m:
-            name = (m.group(1), int(m.group(2)))
+            name = re.search(pattern, m.group(1))
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
@@ -161,39 +166,53 @@ def k2_instances(report, smem):
             continue
         m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
         if m and name:
-            kind, d = name
-            bf16 = kind == "attn_tc"
-            out.append((f"{kind}<{d}> ({'bf16' if bf16 else 'float32'})",
-                        int(m.group(1)), *spills, int(m.group(2) or 0),
-                        smem(d, int(bf16))))
+            out.append((name, int(m.group(1)), *spills, int(m.group(2) or 0)))
             name = None
     return out
 
 
-def phase_build(FA):
+def phase_build(FA, K):
     from repro_torch import nvcc
     t0 = time.perf_counter()
     names = ["permute_step", "flash_attention", "ssd_scan"]
     nvcc.build(names)
     log(f"[build] {', '.join(names)} built in "
         f"{time.perf_counter() - t0:.3f} s")
-    for name in ("permute_step", "ssd_scan"):
-        for line in nvcc.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build]   {name}: {line.strip()}")
+    for line in nvcc.build_log("permute_step").splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"[build]   permute_step: {line.strip()}")
+    lib = K._kernel()
+    rows = []
+    for m, *nums in ptxas_kernels(nvcc.build_log("ssd_scan"),
+                                  r"(ssd_tc|ssd_fma)I(?:Li(\d+)ELi(\d+)E|f)"):
+        bf16 = m.group(1) == "ssd_tc"
+        inst = f"ssd_tc<{m.group(2)}, {m.group(3)}> (bf16)" if bf16 else \
+            "ssd_fma<float> (float32)"
+        # dynamic shared memory at chunk 128 (the FMA kernel's at dh 64, ds 128)
+        dyn = lib.ssd_scan_smem(128, int(m.group(2)), int(m.group(3)), 1) \
+            if bf16 else lib.ssd_scan_smem(128, 64, 128, 0)
+        rows.append(("ssd_scan", inst, *nums, dyn))
+    want = len(K.TC_HEAD_DIMS) * len(K.TC_STATE_DIMS) + 1
+    if len(rows) != want:
+        fail(f"the ptxas report names {len(rows)} K3 kernels, expected {want}")
     smem = (ctypes.c_int * (2 * len(FA.HEAD_DIMS))).in_dll(
         FA._kernel(), "flash_attention_smem")
-    rows = k2_instances(nvcc.build_log("flash_attention"), lambda d, bf16:
-                        smem[bf16 * len(FA.HEAD_DIMS) + FA.HEAD_DIMS.index(d)])
-    if len(rows) != 2 * len(FA.HEAD_DIMS):
-        fail(f"the ptxas report names {len(rows)} K2 kernels, expected "
+    k2 = ptxas_kernels(nvcc.build_log("flash_attention"),
+                       r"(attn_tc|attn_fma)ILi(\d+)E")
+    if len(k2) != 2 * len(FA.HEAD_DIMS):
+        fail(f"the ptxas report names {len(k2)} K2 kernels, expected "
              f"{2 * len(FA.HEAD_DIMS)}")
-    for inst, regs, st, ld, static, dyn in rows:
-        log(f"[build]   flash_attention {inst}: {regs} registers, spill "
-            f"stores {st} B, spill loads {ld} B, shared memory {static} B "
-            f"static + {dyn} B dynamic")
+    for m, *nums in k2:
+        bf16, d = m.group(1) == "attn_tc", int(m.group(2))
+        rows.append(("flash_attention", f"{m.group(1)}<{d}> "
+                     f"({'bf16' if bf16 else 'float32'})", *nums,
+                     smem[bf16 * len(FA.HEAD_DIMS) + FA.HEAD_DIMS.index(d)]))
+    for src, inst, regs, st, ld, static, dyn in rows:
+        log(f"[build]   {src} {inst}: {regs} registers, spill stores {st} B, "
+            f"spill loads {ld} B, shared memory {static} B static + {dyn} B "
+            f"dynamic")
         if (st or ld) and "bf16" in inst:
-            fail(f"flash_attention {inst} spills registers")
+            fail(f"{src} {inst} spills registers")
 
 
 def max_byte_diff(torch, a, b):
@@ -433,10 +452,42 @@ def phase_ssd_vs_plain(torch, K, ref):
                 f"overflow dt=2 A=-1 s=256 {dtype} vs plain")
         compare(torch, got, ref.ssd_ref(*args), tol,
                 f"overflow dt=2 A=-1 s=256 {dtype} vs sequential scan")
-    args = ssd_inputs(torch, 1, 128, 2, 32, 16, f32, 5)
-    outs = [K.ssd_scan(*args, chunk=c) for c in (16, 32, 64, 128)]
-    for c, o in zip((32, 64, 128), outs[1:]):
-        compare(torch, o, outs[0], CHUNK_TOL, f"chunk {c} vs chunk 16")
+    for dtype, tol in ((f32, CHUNK_TOL), (bf, BF16_TOL)):
+        args = ssd_inputs(torch, 1, 128, 2, 32, 16, dtype, 5)
+        outs = [K.ssd_scan(*args, chunk=c) for c in (16, 32, 64, 128)]
+        for c, o in zip((32, 64, 128), outs[1:]):
+            compare(torch, o, outs[0], tol, f"chunk {c} vs chunk 16 {dtype}")
+    # short and ragged chunks of the bf16 kernel: 8 steps (s = 5), 37
+    # (s = 37), 37 with a ragged tail, 16 at head dim 32 and state 16
+    for seed, (s_, dh_, ds_, c_) in enumerate(((5, 64, 128, 128),
+                                               (37, 64, 128, 128),
+                                               (300, 128, 64, 37),
+                                               (100, 32, 16, 16))):
+        args = ssd_inputs(torch, 2, s_, 3, dh_, ds_, bf, 30 + seed)
+        compare(torch, K.ssd_scan(*args, chunk=c_),
+                ref.ssd_chunked(*args, chunk=c_), BF16_TOL,
+                f"s={s_} dh={dh_} ds={ds_} chunk {c_} (chunk_of "
+                f"{K.chunk_of(s_, c_)}) bf16")
+    # many waves of items: 4 x 32 x 32 = 4,096 (b, h, chunk) items
+    args = ssd_inputs(torch, b, 4096, h, dh, ds, bf, 7)
+    got = K.ssd_scan(*args, chunk=chunk)
+    compare(torch, got, ref.ssd_chunked(*args, chunk=chunk), BF16_TOL,
+            f"many waves (4, 4096, 32, 64, 128) bf16")
+    again = K.ssd_scan(*args, chunk=chunk)
+    if not torch.equal(got.view(torch.int16), again.view(torch.int16)):
+        fail("two launches of the bf16 kernel differ")
+    log("[ssd] two launches at (4, 4096, 32, 64, 128) bf16: bit-identical")
+    del args, got, again
+    for what, shape, c_ in (("dhead 16", (1, 64, 2, 16, 64), 64),
+                            ("dstate 256", (1, 64, 2, 64, 256), 64),
+                            ("chunk 256", (1, 512, 2, 64, 128), 256)):
+        args = ssd_inputs(torch, *shape, bf, 8)
+        try:
+            K.ssd_scan(*args, chunk=c_)
+        except ValueError as e:
+            log(f"[ssd] bf16 {what} raises ValueError: {e}")
+        else:
+            fail(f"bf16 {what}: no ValueError")
     torch.cuda.synchronize()
     return main_err
 
@@ -584,6 +635,14 @@ def phase_serve(torch, serve, cfg):
 
 
 def phase_ssd_timing(torch, K, ref, rate):
+    """K3 at the prefill shape in bf16 (the tensor-core kernel): ``ms`` the
+    minimum of 2 eager loops of 20 launches over 20 (the wrapper's host work
+    included); ``graph_ms`` the same 20 launches in a CUDA graph; ``host_ms``
+    the wrapper's host time per call (20 calls issued back to back); its
+    bound (the function's bytes and FLOP, full C B^T and W x tiles, not the
+    split's extra products), TFLOP/s and share of the bound on those FLOP;
+    the plain version; then the float32 FMA kernel once at the same
+    shape."""
     b, s, h, dh, ds, chunk = SSD_MAIN
     args = ssd_inputs(torch, b, s, h, dh, ds, torch.bfloat16, 6)
     y = K.ssd_scan(*args, chunk=chunk)
@@ -593,18 +652,42 @@ def phase_ssd_timing(torch, K, ref, rate):
     bound_ms = max(nbytes / rate, flops / BF16_PEAK) * 1e3
     bound_by = "bytes" if nbytes / rate >= flops / BF16_PEAK else "operations"
     reps = 20
-    kernel_ms = min(cuda_ms(lambda: [K.ssd_scan(*args, chunk=chunk)
-                                     for _ in range(reps)])
+
+    def kernel():
+        return K.ssd_scan(*args, chunk=chunk)
+    kernel_ms = min(cuda_ms(lambda: [kernel() for _ in range(reps)])
                     for _ in range(2)) / reps
+    kernel_graph_ms = graph_ms(torch, kernel, reps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        kernel()
+    host_ms = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
     plain_ms = min(cuda_ms(lambda: ref.ssd_chunked(*args, chunk=chunk))
                    for _ in range(3))
+    tflops = flops / kernel_ms / 1e9
     log(f"[timing] ssd_scan at {SSD_MAIN}, bf16: kernel {kernel_ms!r} ms per "
-        f"launch, bound {bound_ms!r} ms ({bound_by}: {nbytes} B at "
-        f"{rate / 1e12:.2f} TB/s, {flops} FLOP at 989 TFLOP/s), plain "
-        f"{plain_ms!r} ms; library: none (no single PyTorch call computes "
-        f"the SSD scan)")
-    return dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by)
+        f"launch (eager loop of {reps}; CUDA graph of {reps}: "
+        f"{kernel_graph_ms!r} ms; the wrapper's host time {host_ms!r} ms a "
+        f"call), bound {bound_ms!r} ms ({bound_by}: {nbytes} B at "
+        f"{rate / 1e12:.2f} TB/s, {flops} FLOP at 989 TFLOP/s), "
+        f"{tflops!r} TFLOP/s eager, {flops / kernel_graph_ms / 1e9!r} in the "
+        f"graph; {bound_ms / kernel_ms!r} / {bound_ms / kernel_graph_ms!r} "
+        f"of its bound; plain {plain_ms!r} ms; library: none (no single "
+        f"PyTorch call computes the SSD scan)")
+    del args, y
+    args = ssd_inputs(torch, b, s, h, dh, ds, torch.float32, 6)
+    f32_ms = min(cuda_ms(lambda: K.ssd_scan(*args, chunk=chunk))
+                 for _ in range(2))
+    log(f"[timing] ssd_scan at {SSD_MAIN}, float32 (FMA kernel): {f32_ms!r} "
+        f"ms per launch, {flops / f32_ms / 1e9!r} TFLOP/s")
+    del args
+    torch.cuda.empty_cache()
+    return dict(ms=kernel_ms, graph_ms=kernel_graph_ms, host_ms=host_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                tflops=tflops, share_of_bound=bound_ms / kernel_ms,
+                f32_ms=f32_ms)
 
 
 def phase_decode_timing(torch, model, serve, SyntheticTokens, cfg):
@@ -653,7 +736,7 @@ def profile_window(torch, fn, what):
     for n, us in by_name.items():
         k = "flash_attention (K2)" if "attn_tc" in n or "attn_fma" in n \
             else \
-            "ssd_scan (K3)" if "ssd_scan" in n else \
+            "ssd_scan (K3)" if "ssd_tc" in n or "ssd_fma" in n else \
             "matmul" if any(w in n.lower() for w in (
                 "gemm", "gemv", "nvjet", "xmma", "cutlass")) else "other"
         kinds[k] += us
@@ -1003,7 +1086,7 @@ def main():
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     rate = mem_rate(name)
 
-    phase_build(FA)
+    phase_build(FA, K)
     max_err = phase_kernel_vs_plain(np, torch, rs)
     K.launches = FA.launches = 0
     ex, x, lay, launches, secs = phase_main(torch, rs, api, T)
@@ -1041,7 +1124,9 @@ def main():
     st = phase_ssd_timing(torch, K, ref, rate)
     dec = phase_decode_timing(torch, model, serve, SyntheticTokens, cfg)
     phase_profile(torch, model, cfg, SyntheticTokens)
-    log(f"[summary] {name}: K3 {st['ms']!r} ms per launch x {pf['launches']} "
+    log(f"[summary] {name}: K3 {st['ms']!r} ms per launch (eager; "
+        f"{st['graph_ms']!r} ms in a CUDA graph; float32 FMA kernel "
+        f"{st['f32_ms']!r} ms) x {pf['launches']} "
         f"launches per prefill; prefill 4x2048 {pf['ms']!r} ms "
         f"({4 * 2048 / pf['ms'] * 1e3!r} tokens/s), peak {pf['peak']} B; "
         f"decode {dec['step_ms']!r} ms per step; serve {dec['tok_per_s']!r} "
@@ -1095,7 +1180,9 @@ def main():
         "launches": pf["launches"], "max_abs_err": ssd_err,
         "ms": st["ms"], "plain_ms": st["plain_ms"],
         "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
-        "library_ms": None,
+        "library_ms": None, "graph_ms": st["graph_ms"],
+        "host_ms": st["host_ms"], "tflops": st["tflops"],
+        "share_of_bound": st["share_of_bound"], "f32_ms": st["f32_ms"],
     }]
     print(name, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

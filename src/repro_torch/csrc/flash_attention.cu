@@ -75,6 +75,7 @@
 // the host with cuTensorMapEncodeTiled, reached through
 // cudaGetDriverEntryPoint: cuda.h gives the types only, nothing links the
 // driver library.
+// The wgmma helpers are shared with K3 (csrc/hopper.cuh).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -85,27 +86,17 @@
 #include <atomic>
 #include <type_traits>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace hopper;
 
 constexpr float NEG = -1e30f;    // the masked logit, as the reference's
 
 struct Strides {                 // elements; the d stride is 1
   long long b, h, s;
 };
-
-// cudaFuncSetAttribute for the dynamic shared memory of kernel `fn`, once
-// per device (bit `dev` of `done`).
-int set_smem_once(const void* fn, int bytes, std::atomic<uint64_t>& done) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  const uint64_t bit = 1ull << (dev & 63);
-  if (done.load() & bit) return (int)cudaSuccess;
-  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             bytes);
-  if (err == cudaSuccess) done.fetch_or(bit);
-  return (int)err;
-}
 
 // ============================ float32: attn_fma ============================
 
@@ -318,10 +309,6 @@ struct Tile {
   static constexpr int SMEM = (1 + 2 * NS) * BYTES + 1024;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
                "r"(count) : "memory");
@@ -367,128 +354,6 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       "r"(c3), "r"(bar) : "memory");
 }
 
-// wgmma shared-memory descriptor: start address, leading and stride byte
-// offsets (16-byte units), swizzle layout type.
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
-                                         uint32_t sbo, int layout) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
-         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | ((uint64_t)layout << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-
-// Waits until at most N committed groups of wgmma are in flight.
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-
-// Pins the operand registers of an asynchronous wgmma in program order:
-// written before its wgmma.fence, read after its wait.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-template <int N, int M>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][M]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < M; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
-#define REGS8 "%0, %1, %2, %3, %4, %5, %6, %7"
-#define REGS16 REGS8 ", %8, %9, %10, %11, %12, %13, %14, %15"
-#define REGS32                                                              \
-  REGS16 ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "   \
-         "%28, %29, %30, %31"
-#define REGS64                                                              \
-  REGS32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "   \
-         "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, " \
-         "%57, %58, %59, %60, %61, %62, %63"
-#define ACC8(i)                                                             \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),               \
-      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-#define ACC16(i) ACC8(i), ACC8(i + 8)
-#define ACC32(i) ACC16(i), ACC16(i + 16)
-#define ACC64(i) ACC32(i), ACC32(i + 32)
-
-// d (64 x 128, f32) = or += A (64 x 16) B (16 x 128): both bf16 from shared
-// memory, K-major; scale_d == 0 overwrites d.
-__device__ __forceinline__ void mma_ss(float (&d)[64], uint64_t da,
-                                       uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" REGS64
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : ACC64(0)
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// d (64 x N, f32) += A (64 x 16, bf16, four registers a thread in the
-// accumulator's layout) B (16 x N, bf16 in shared memory, MN-major).
-template <int N>
-__device__ __forceinline__ void mma_rs(float (&d)[N / 2],
-                                       const uint32_t (&a)[4], uint64_t db);
-
-template <>
-__device__ __forceinline__ void mma_rs<16>(float (&d)[8],
-                                           const uint32_t (&a)[4],
-                                           uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {" REGS8
-      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : ACC8(0)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void mma_rs<32>(float (&d)[16],
-                                           const uint32_t (&a)[4],
-                                           uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {" REGS16
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : ACC16(0)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void mma_rs<64>(float (&d)[32],
-                                           const uint32_t (&a)[4],
-                                           uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" REGS32
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : ACC32(0)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void mma_rs<128>(float (&d)[64],
-                                            const uint32_t (&a)[4],
-                                            uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" REGS64
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : ACC64(0)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 // Named barrier `id` (1 and 2; 0 is __syncthreads) over the two consumers:
 // one waits for its turn on it, the other passes the turn to it.
 __device__ __forceinline__ void turn_wait(int id) {
@@ -508,7 +373,7 @@ __device__ __forceinline__ void mma_qk(float (&sc)[BK / 2], uint32_t qa,
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const uint32_t at = (kk * 32 / L::SW) * L::PANEL + (kk * 32) % L::SW;
-    mma_ss(sc, desc(qa + at, 16, 8 * L::SW, L::LAYOUT),
+    mma_ss<128, 0>(sc, desc(qa + at, 16, 8 * L::SW, L::LAYOUT),
            desc(kt + at, 16, 8 * L::SW, L::LAYOUT), kk);
   }
   asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
@@ -526,12 +391,6 @@ __device__ __forceinline__ void mma_pv(float (&acc)[D / 2],
     mma_rs<D>(acc, pa[kk],
               desc(vt + kk * 16 * L::SW, L::PANEL, 8 * L::SW, L::LAYOUT));
   asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // The online softmax over one tile of scores for this thread's two rows

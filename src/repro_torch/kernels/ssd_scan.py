@@ -8,11 +8,26 @@ carried from chunk to chunk. Shapes: x (batch, seq, heads, dhead), dt
 (batch, seq, heads), A (heads,), B and C (batch, seq, heads, dstate); y is
 like x. Float32 inside, y in x's dtype.
 
-On a CUDA tensor it launches ``csrc/ssd_scan.cu`` (one block per
-(batch, head), the chunk loop inside the block) on the current stream and
-counts the launch in ``launches``; on a CPU tensor it runs the plain
-version ``repro_torch.kernels.ref.ssd_chunked``; on any other device it
-raises. It never falls back from the kernel to the plain version.
+On a CUDA tensor it launches ``csrc/ssd_scan.cu`` on the current stream
+and counts the launch in ``launches``. The kernel is chosen by dtype inside
+the one entry point, never one in place of the other:
+
+- bfloat16 runs on the tensor cores (``ssd_tc``): one block per (batch,
+  head, chunk), taken chunk-major from a ticket counter, the carried state
+  handed from block to block inside the launch; the float32 operands of its
+  products are split into two bf16 terms. It takes dhead in (32, 64, 128),
+  dstate in (16, 32, 64, 128) and a chunk of at most 128 steps; any other
+  bfloat16 shape raises ``ValueError``. Its workspace, allocated here on
+  the current stream for each call: ``1 + batch * heads`` int32 zeros (the
+  ticket counter and the hand-off flags) and ``2 * batch * heads * dstate
+  * dhead`` float32 state slots (8 MiB at the Mamba-2 370M prefill).
+- float32 runs exact on the FMA units (``ssd_fma``: one block per (batch,
+  head), the chunk loop inside the block); dhead and dstate multiples of
+  4, and a chunk whose shared memory fits one block, else ``ValueError``.
+
+On a CPU tensor it runs the plain version
+``repro_torch.kernels.ref.ssd_chunked``; on any other device it raises. It
+never falls back from a kernel to the plain version.
 """
 
 from __future__ import annotations
@@ -24,6 +39,10 @@ import torch
 from repro_torch.kernels import ref
 
 DEFAULT_CHUNK = 128
+# shapes the bfloat16 (tensor-core) kernel takes
+TC_HEAD_DIMS = (32, 64, 128)
+TC_STATE_DIMS = (16, 32, 64, 128)
+TC_MAX_CHUNK = 128
 
 launches = 0               # kernel launches of ssd_scan since the last reset
 
@@ -44,7 +63,7 @@ def _kernel():
         from repro_torch.nvcc import load
         lib = load("ssd_scan")
         lib.ssd_scan.argtypes = [ctypes.c_void_p] * 6 + \
-            [ctypes.c_int] * 7 + [ctypes.c_void_p]
+            [ctypes.c_int] * 7 + [ctypes.c_void_p] * 3
         lib.ssd_scan.restype = ctypes.c_int
         lib.ssd_scan_smem.argtypes = [ctypes.c_int] * 4
         lib.ssd_scan_smem.restype = ctypes.c_longlong
@@ -88,6 +107,14 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                          f"bfloat16; got {x.dtype}, {B.dtype}, {C.dtype}")
     bsz, seq, h, dh = x.shape
     ds = B.shape[-1]
+    bf16 = x.dtype == torch.bfloat16
+    lc = chunk_of(seq, chunk)
+    if bf16 and (dh not in TC_HEAD_DIMS or ds not in TC_STATE_DIMS or
+                 lc > TC_MAX_CHUNK):
+        raise ValueError(f"the bfloat16 kernel takes dhead in {TC_HEAD_DIMS}, "
+                         f"dstate in {TC_STATE_DIMS} and a chunk of at most "
+                         f"{TC_MAX_CHUNK} steps; got dhead {dh}, dstate {ds}, "
+                         f"chunk {lc}")
     if dh % 4 or ds % 4:
         raise ValueError(f"dhead {dh} and dstate {ds} must be multiples of 4")
     dt = dt.float().contiguous()
@@ -99,19 +126,28 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if y.numel() == 0:
         return y
     lib = _kernel()
-    lc, bf16 = chunk_of(seq, chunk), int(x.dtype == torch.bfloat16)
+    work = slots = None
     with torch.cuda.device(x.device):
-        smem, limit = lib.ssd_scan_smem(lc, dh, ds, bf16), \
+        smem, limit = lib.ssd_scan_smem(lc, dh, ds, int(bf16)), \
             lib.ssd_scan_smem_limit()
         if smem < 0 or smem > limit:
             raise ValueError(f"chunk {lc}, dhead {dh}, dstate {ds} in "
                              f"{x.dtype} do not fit one block (shared memory "
                              f"{smem} B of {limit}; -1: too many output "
                              f"rows); use a smaller chunk")
+        if bf16:
+            # the ticket counter and the flags of the state hand-off (0 at
+            # launch), and two float32 state slots per (batch, head)
+            work = torch.zeros(1 + bsz * h, dtype=torch.int32,
+                               device=x.device)
+            slots = torch.empty(2 * bsz * h * ds * dh, dtype=torch.float32,
+                                device=x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.ssd_scan(x.data_ptr(), dt.data_ptr(), A.data_ptr(),
                           B.data_ptr(), C.data_ptr(), y.data_ptr(), bsz, seq,
-                          h, dh, ds, lc, bf16, stream)
+                          h, dh, ds, lc, int(bf16),
+                          work.data_ptr() if bf16 else None,
+                          slots.data_ptr() if bf16 else None, stream)
     if rc != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {rc}")
     launches += 1

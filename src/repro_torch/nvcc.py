@@ -2,9 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for Hopper (``sm_90a``) into a shared library, at first use, from the
-sources in the package. The library is keyed by a hash of its source and
-flags, so an edited source is rebuilt and an unchanged one is loaded as it
-is. The build directory (``_build/`` beside this file) is listed in
+sources in the package. The library is keyed by a hash of its source, the
+shared headers (``csrc/*.cuh``) and the flags, so an edited source or
+header is rebuilt and an unchanged one is loaded as it is. The build directory (``_build/`` beside this file) is listed in
 ``.gitignore``. ``build`` compiles several sources at once, one ``nvcc``
 process each, all started together.
 
@@ -48,7 +48,9 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the source, the headers it may include and the flags
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{key[:16]}.so"
 

@@ -110,7 +110,8 @@ def test_small_broadcast_on_card_matches_cpu(gpu, algo):
 
 SSD_SHAPES = [(1, 64, 2, 32, 16, 32), (2, 100, 4, 64, 32, 32),
               (1, 256, 2, 64, 128, 128), (1, 32, 8, 128, 64, 16),
-              (2, 5, 3, 64, 128, 128)]
+              (2, 5, 3, 64, 128, 128), (2, 37, 3, 64, 128, 128),
+              (2, 300, 3, 128, 64, 37), (1, 100, 2, 32, 16, 8)]
 
 
 def _ssd_inputs(gpu, seed, b, s, h, dh, ds, dtype):
@@ -142,13 +143,51 @@ def test_ssd_kernel_matches_plain(gpu, dtype, b, s, h, dh, ds, chunk):
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
-def test_ssd_kernel_chunk_invariance(gpu):
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4),
+                                       ("bfloat16", 2e-2)])
+def test_ssd_kernel_chunk_invariance(gpu, dtype, tol):
+    """Chunks of 32, 64 and 128 against chunk 16: float32 within 1e-4;
+    bf16 within its gate of 2e-2 (the output's own rounding to bf16 differs
+    by an ulp between chunkings)."""
     from repro_torch.kernels import ssd_scan as K
 
-    args = _ssd_inputs(gpu, 1, 1, 128, 2, 32, 16, torch.float32)
+    args = _ssd_inputs(gpu, 1, 1, 128, 2, 32, 16, getattr(torch, dtype))
     outs = [K.ssd_scan(*args, chunk=c) for c in (16, 32, 64, 128)]
     for o in outs[1:]:
-        torch.testing.assert_close(o, outs[0], atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(o.float(), outs[0].float(), atol=tol,
+                                   rtol=tol)
+
+
+def test_ssd_kernel_many_waves_and_deterministic(gpu):
+    """4 x 4096 steps x 32 heads in bf16: 4,096 (batch, head, chunk) items,
+    many waves of blocks handing the state on; against ``ssd_chunked`` at
+    2e-2, and two launches bit-identical (no atomics in any sum)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as K
+
+    args = _ssd_inputs(gpu, 7, 4, 4096, 32, 64, 128, torch.bfloat16)
+    got = K.ssd_scan(*args)
+    again = K.ssd_scan(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int16), again.view(torch.int16))
+    torch.testing.assert_close(got.float(), ref.ssd_chunked(*args).float(),
+                               atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("dh,ds,seq,chunk", [(16, 64, 64, 64),
+                                             (64, 256, 64, 64),
+                                             (64, 128, 512, 256),
+                                             (48, 64, 64, 64)])
+def test_ssd_kernel_bf16_shape_outside_raises(gpu, dh, ds, seq, chunk):
+    """A bf16 shape the tensor-core kernel does not take raises; it never
+    falls to the float32 kernel or the plain version."""
+    from repro_torch.kernels import ssd_scan as K
+
+    args = _ssd_inputs(gpu, 8, 1, seq, 2, dh, ds, torch.bfloat16)
+    before = K.launches
+    with pytest.raises(ValueError, match="bfloat16 kernel takes"):
+        K.ssd_scan(*args, chunk=chunk)
+    assert K.launches == before
 
 
 @pytest.mark.parametrize("bf16", [1, 0])

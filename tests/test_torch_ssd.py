@@ -167,3 +167,120 @@ def test_kernel_chunk():
     """The chunk K3 takes: the reference kernel's ``min(chunk, max(seq, 8))``."""
     assert K.chunk_of(2048) == 128 and K.chunk_of(100, 32) == 32
     assert K.chunk_of(5) == 8 and K.chunk_of(20) == 20
+
+
+# ---- the bfloat16 kernel's arithmetic, emulated in plain torch -----------
+
+SPLIT = ("W", "B o sdec", "h_in")   # the float32 operands the kernel splits
+
+
+def _bf16_terms(v, split=True):
+    """hi = bf16(v) and lo = bf16(v - hi), both back in float32; only hi
+    where ``split`` is False (one rounding to bf16)."""
+    hi = v.to(torch.bfloat16).float()
+    return (hi, (v - hi).to(torch.bfloat16).float()) if split else (hi,)
+
+
+def _kernel_emulation(x, dt, A, B, C, chunk=K.DEFAULT_CHUNK, split=SPLIT):
+    """What the bfloat16 kernel (``ssd_tc``) computes, step for step, for
+    bf16 x, B, C: per chunk of ``chunk_of(seq, chunk)`` steps (rows past the
+    sequence zero, dt 0) the chunk-local G = C B^T (exact: bf16 products in
+    float32), W = G o L o dt selected (never a multiplied mask), y_diag =
+    W_hi x + W_lo x, S_c = (B o sdec)_hi^T x + (B o sdec)_lo^T x; then the
+    chunk-by-chunk hand-off h_out = h_in exp(A cum_end) + S_c, and y = y_diag
+    + exp(A cum_i) (C h_in,hi + C h_in,lo), rounded once to x's dtype. An
+    operand left out of ``split`` is rounded to bf16 once instead. A test
+    helper, on no path of the port."""
+    bsz, seq, h, dh = x.shape
+    ds = B.shape[-1]
+    lc = K.chunk_of(seq, chunk)
+    nc = -(-seq // lc)
+    pad = nc * lc - seq
+
+    def chunks(t):
+        t = t.float()
+        t = torch.cat([t, t.new_zeros((bsz, pad) + t.shape[2:])], dim=1)
+        return t.reshape((bsz, nc, lc) + t.shape[2:]).movedim(3, 1)
+
+    xs, Bs, Cs = chunks(x), chunks(B), chunks(C)     # (b, h, nc, lc, .)
+    dts = chunks(dt)                                  # (b, h, nc, lc)
+    a = A.float()[None, :, None, None]
+    cum = torch.cumsum(dts, dim=-1)
+    cend = cum[..., -1:]
+    tri = torch.ones((lc, lc), dtype=torch.bool).tril()
+    G = torch.einsum("bhnis,bhnjs->bhnij", Cs, Bs)
+    Ldec = torch.where(tri, torch.exp(a[..., None] * (cum[..., :, None] -
+                                                      cum[..., None, :])),
+                       torch.zeros(()))
+    W = torch.where(tri, G * Ldec * dts[..., None, :], torch.zeros(()))
+    y = sum(torch.einsum("bhnij,bhnjd->bhnid", w, xs) for w in _bf16_terms(W, "W" in split))
+    Bsd = Bs * (torch.exp(a * (cend - cum)) * dts)[..., None]
+    S = sum(torch.einsum("bhnjs,bhnjd->bhnsd", v, xs)
+            for v in _bf16_terms(Bsd, "B o sdec" in split))
+    gend = torch.exp(a[..., 0] * cend[..., 0])       # (b, h, nc)
+    hin = torch.zeros((bsz, h, ds, dh))
+    for n in range(nc):
+        if n:
+            yoff = sum(torch.einsum("bhis,bhsd->bhid", Cs[:, :, n], v)
+                       for v in _bf16_terms(hin, "h_in" in split))
+            y[:, :, n] += torch.exp(a[..., 0, None] * cum[:, :, n, :, None]) \
+                * yoff
+        hin = hin * gend[:, :, n, None, None] + S[:, :, n]
+    y = y.movedim(1, 3).reshape(bsz, nc * lc, h, dh)[:, :seq]
+    return y.to(x.dtype)
+
+
+@pytest.mark.parametrize("b,s,h,dh,ds,chunk", SHAPES)
+def test_kernel_emulation_matches_reference(b, s, h, dh, ds, chunk):
+    """The bf16 kernel's arithmetic against the Pallas kernel (interpret
+    mode) and the sequential scan, on the same inputs as
+    ``test_plain_versions_match_reference``; bf16 tolerance 2e-2."""
+    args = _inputs(b * 1000 + s, b, s, h, dh, ds, "bfloat16")
+    got = _np(_kernel_emulation(*[_torch(a) for a in args], chunk=chunk))
+    np.testing.assert_allclose(got, _pallas(args, chunk), atol=2e-2,
+                               rtol=2e-2)
+    np.testing.assert_allclose(got, _sequential(args), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("s,chunk", [(5, 128), (100, 8), (100, 16),
+                                     (37, 128), (100, 37)])
+def test_kernel_emulation_short_and_ragged_chunks(s, chunk):
+    """Chunks of 8 (s = 5 takes 8), 16 and 37 steps, ragged tails, against
+    the sequential scan; bf16 tolerance."""
+    args = _inputs(s + chunk, 2, s, 3, 64, 32, "bfloat16")
+    assert K.chunk_of(s, chunk) in (8, 16, 37)
+    got = _kernel_emulation(*[_torch(a) for a in args], chunk=chunk)
+    np.testing.assert_allclose(_np(got), _sequential(args), atol=2e-2,
+                               rtol=2e-2)
+
+
+def test_kernel_emulation_overflow_regime():
+    """dt = 2, A = -1: W's decay is selected, so the output is finite and
+    matches the sequential scan."""
+    args = _inputs(9, 1, 256, 2, 64, 16, "bfloat16", dt_value=2.0, a=-1.0)
+    got = _kernel_emulation(*[_torch(a) for a in args])
+    assert torch.isfinite(got.float()).all()
+    np.testing.assert_allclose(_np(got), _sequential(args), atol=2e-2,
+                               rtol=2e-2)
+
+
+@functools.lru_cache(maxsize=1)
+def _prefill_chains():
+    """Four prefill-shaped chains (s 2048, dh 64, ds 128, one batch row,
+    four heads) and ``ssd_chunked`` on them."""
+    args = [_torch(a) for a in _inputs(15, 1, 2048, 4, 64, 128, "bfloat16")]
+    return args, ref.ssd_chunked(*args).float()
+
+
+@pytest.mark.parametrize("unsplit", [None, *SPLIT])
+def test_kernel_emulation_prefill_chain(unsplit):
+    """Prefill-shaped chains (chunk 128) against ``ssd_chunked`` under the
+    bf16 gate of 2e-2 abs + rel. With every float32 operand split into two
+    bf16 terms, as the kernel does, every output is inside the gate; with
+    any one of them rounded to bf16 once, some are not (which is why the
+    kernel splits all three)."""
+    args, want = _prefill_chains()
+    split = tuple(s for s in SPLIT if s != unsplit)
+    got = _kernel_emulation(*args, split=split).float()
+    outside = int(((got - want).abs() > 2e-2 + 2e-2 * want.abs()).sum())
+    assert (outside == 0) == (unsplit is None), outside
