@@ -6,23 +6,32 @@
 Phases, each of which exits non-zero on failure:
 
 1. build every CUDA kernel of the main paths with ``nvcc`` (sm_90a), all
-   sources at once: ``permute_step`` (K1), ``flash_attention`` (K2) and
-   ``ssd_scan`` (K3); print ptxas's registers and spills, and each K2 and
-   K3 instance's shared memory (K2: bf16 tensor-core and float32 FMA
-   kernels, four head dims each; K3: ``ssd_tc<dh, ds>`` for bf16, twelve
-   instances, and the float32 FMA kernel); a bf16 instance that spills
-   fails;
-2. hold K1 bit-exact against its plain PyTorch version on the card:
-   random tables with every edge case, float32 and bfloat16 payloads, and a
-   buffer over 2**31 bytes;
+   sources at once: ``permute_rounds`` (K1, every sub-round of a broadcast
+   in one persistent launch), ``permute_step`` (K1's one-sub-round kernel,
+   the yardstick), ``flash_attention`` (K2) and ``ssd_scan`` (K3); print
+   ptxas's registers and spills, and each K2 and K3 instance's shared
+   memory (K2: bf16 tensor-core and float32 FMA kernels, five head dims
+   each, bf16 D 112 on the D 128 tile; K3: ``ssd_tc<dh, ds>`` for bf16,
+   twelve instances, and the float32 FMA kernel); a bf16 instance that
+   spills fails;
+2. hold ``permute_step`` bit-exact against its plain PyTorch version on the
+   card: random tables with every edge case, float32 and bfloat16
+   payloads, and a buffer over 2**31 bytes; then ``permute_rounds`` against
+   ``permute_rounds_ref``: random sequences of 1, 7 and 64 sub-rounds with
+   sub-rounds of count 0, n = 1, float32 and bfloat16 payloads, the main
+   path's buffer over 2**32 bytes, two launches bit-identical;
 3. the broadcast path: ``repro_torch.api.compile(mesh2d(16, 16)).executable(
    root=0, nbytes=16 MiB)`` on cuda -- 256 virtual devices, verified bit-exact
-   on every device, with K1's launch count equal to d x cycles;
+   on every device, in exactly one ``permute_rounds`` launch running d x
+   cycles sub-rounds, and no ``permute_step`` launch;
 4. small broadcasts (ring 8, hypercube 3; bbs and bine_tree; roots 0 and 3;
    bfloat16) on the card, each verified and held against the CPU run;
-5. K1's timing at the broadcast's shape: per launch (a CUDA graph of the
-   whole cycle loop, so host launch cost is left out), its bound (bytes
-   moved over the card's memory rate), the plain version and the
+5. K1's timing at the broadcast's shape: the old design per launch (a CUDA
+   graph of the 2,156 ``permute_step`` launches, so host launch cost is
+   left out; and their eager loop), the new one (``measure()``: one
+   ``permute_rounds`` launch a broadcast, min of 3; its barrier-only time,
+   the same launch with every count 0; the wrapper's host time), the bound
+   (bytes moved over the card's memory rate), the plain versions and the
    ``index_select``/``index_copy_`` yardstick;
 6. hold K3 against its plain version (``ssd_chunked``) on the card: the
    Mamba-2 370M prefill shape in bf16, a ragged sequence, float32, the
@@ -46,7 +55,8 @@ Phases, each of which exits non-zero on failure:
    llama3.2-3b prefill shape (B 4, Hq 32, Hkv 16, S = T = 2048, D 128) in
    bf16 and float32, ragged S = T = 2000, non-causal, the decode offset
    (S = 1 and S = 16 against T = 2048), S > T with fully-masked rows
-   (exactly 0), and the odd sizes 37/37 with D 32;
+   (exactly 0), the odd sizes 37/37 with D 32, and zamba2-7b's head dim
+   112 at its prefill shape (4, 32, 32, 2048, 2048) in bf16 and float32;
 10. the serving path of llama3.2-3b at full width (28 layers, random weights
    from seed 0), the Mamba-2 models freed first: ``LM.prefill`` of
    4 x 2048 ``SyntheticTokens`` with exactly one K2 launch per layer (and
@@ -63,8 +73,8 @@ Phases, each of which exits non-zero on failure:
    wrapper's host time per call): its bound (operations), TFLOP/s, share
    of the bound, the plain version and ``scaled_dot_product_attention`` as
    the library yardstick (timed both ways here only; the port never calls
-   it) and K2's ratio to it; the
-   float32 FMA kernel once at the same shape; prefill time, decode time
+   it) and K2's ratio to it; K2 at zamba2-7b's head dim 112 beside SDPA;
+   the float32 FMA kernel once at the same shape; prefill time, decode time
    after a 4 x 2048 prefill, serve's tokens/s; a ``torch.profiler`` window
    over one dense prefill and the four decode steps after it.
 
@@ -94,6 +104,8 @@ SSD_MAIN = (4, 2048, 32, 64, 128, 128)
 # the llama3.2-3b prefill's attention: batch, q heads (the TP padding's 32
 # slots), kv heads (16), query rows, key columns, head dim
 ATTN_MAIN = (4, 32, 16, 2048, 2048, 128)
+# zamba2-7b's shared attention at a 4 x 2048 prefill (32 heads of 112)
+ZAMBA_ATTN = (4, 32, 32, 2048, 2048, 112)
 BF16_TOL, F32_TOL, CHUNK_TOL = 2e-2, 3e-5, 1e-4   # tests/test_kernels.py
 F32_MODEL_TOL = 1e-3      # float32 logits at full depth
 
@@ -174,13 +186,17 @@ def ptxas_kernels(report, pattern):
 def phase_build(FA, K):
     from repro_torch import nvcc
     t0 = time.perf_counter()
-    names = ["permute_step", "flash_attention", "ssd_scan"]
+    names = ["permute_rounds", "permute_step", "flash_attention", "ssd_scan"]
     nvcc.build(names)
     log(f"[build] {', '.join(names)} built in "
         f"{time.perf_counter() - t0:.3f} s")
-    for line in nvcc.build_log("permute_step").splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build]   permute_step: {line.strip()}")
+    k1 = {}
+    for src in ("permute_rounds", "permute_step"):
+        for line in nvcc.build_log(src).splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build]   {src}: {line.strip()}")
+        (_, r, st, ld, _), = ptxas_kernels(nvcc.build_log(src), src)
+        k1[src] = dict(registers=r, spill_stores=st, spill_loads=ld)
     lib = K._kernel()
     rows = []
     for m, *nums in ptxas_kernels(nvcc.build_log("ssd_scan"),
@@ -198,13 +214,15 @@ def phase_build(FA, K):
     smem = (ctypes.c_int * (2 * len(FA.HEAD_DIMS))).in_dll(
         FA._kernel(), "flash_attention_smem")
     k2 = ptxas_kernels(nvcc.build_log("flash_attention"),
-                       r"(attn_tc|attn_fma)ILi(\d+)E")
+                       r"(attn_tc|attn_fma)ILi(\d+)E(?:Li(\d+)E)?")
     if len(k2) != 2 * len(FA.HEAD_DIMS):
         fail(f"the ptxas report names {len(k2)} K2 kernels, expected "
              f"{2 * len(FA.HEAD_DIMS)}")
     for m, *nums in k2:
-        bf16, d = m.group(1) == "attn_tc", int(m.group(2))
-        rows.append(("flash_attention", f"{m.group(1)}<{d}> "
+        # attn_tc<D, DV> computes at D and stores DV columns
+        bf16, d = m.group(1) == "attn_tc", int(m.group(3) or m.group(2))
+        inst = f"attn_tc<{m.group(2)}, {d}>" if bf16 else f"attn_fma<{d}>"
+        rows.append(("flash_attention", f"{inst} "
                      f"({'bf16' if bf16 else 'float32'})", *nums,
                      smem[bf16 * len(FA.HEAD_DIMS) + FA.HEAD_DIMS.index(d)]))
     for src, inst, regs, st, ld, static, dyn in rows:
@@ -213,6 +231,7 @@ def phase_build(FA, K):
             f"dynamic")
         if (st or ld) and "bf16" in inst:
             fail(f"{src} {inst} spills registers")
+    return k1
 
 
 def max_byte_diff(torch, a, b):
@@ -284,6 +303,71 @@ def phase_kernel_vs_plain(np, torch, rs):
     return worst
 
 
+def phase_rounds_vs_plain(np, torch, rs):
+    """``permute_rounds`` (every sub-round in one launch) against
+    ``permute_rounds_ref`` on the card, bit-exact. Returns the largest byte
+    difference seen (0 when bit-exact)."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(12)
+    worst = 0
+
+    def check(buf, tabs, what, s0=0, s1=None):
+        nonlocal worst
+        moves = rs.compact_moves(tabs, buf.shape[1]).to(dev)
+        want = rs.permute_rounds_ref(buf.clone(), moves, s0, s1)
+        got = rs.permute_rounds(buf.clone(), moves, s0, s1)
+        again = rs.permute_rounds(buf.clone(), moves, s0, s1)
+        torch.cuda.synchronize()
+        worst = max(worst, max_byte_diff(torch, got, want))
+        if not torch.equal(got, want):
+            fail(f"permute_rounds differs from plain version: {what}")
+        if not torch.equal(again, got):
+            fail(f"two permute_rounds launches differ: {what}")
+        idle = int((moves.counts[s0:s1] == 0).sum())
+        log(f"[rounds] bit-exact, two launches identical: {what} "
+            f"({idle} sub-rounds of count 0)")
+        del want, got, again
+
+    def tables(n, rows, count):
+        tabs = np.stack([rs.random_table(rng, n, rows)
+                         for _ in range(count)])
+        tabs[2::3, 4] = 0                    # no writer: the barrier alone
+        return tabs
+
+    for dtype in (torch.float32, torch.bfloat16):
+        n, rows, plen = 64, 41, 1531
+        vals = torch.from_numpy(rng.standard_normal((n, rows, plen))
+                                .astype(np.float32)).to(dtype)
+        vals.view(-1)[::97] = float("nan")
+        raw = vals.view(torch.uint8)
+        row_bytes = -(-raw.shape[2] // 16) * 16
+        buf = torch.zeros((n, rows, row_bytes), dtype=torch.uint8)
+        buf[:, :, :raw.shape[2]] = raw
+        buf = buf.to(dev)
+        for count in (1, 7, 64):
+            check(buf, tables(n, rows, count), f"{dtype} payload, n={n} "
+                  f"rows={rows}, {count} random sub-rounds")
+    buf = torch.randint(0, 256, (1, 5, 4096), dtype=torch.uint8, device=dev)
+    check(buf, tables(1, 5, 64), "n=1, 64 sub-rounds")
+    check(buf[:, :1].contiguous(), tables(1, 1, 7), "n=1 rows=1, 7 "
+          "sub-rounds")
+    # the main path's shape: 256 x 772 x 21,744 B = 4.3 GB, over 2**32
+    # bytes; the last device's last row sits past byte 2**32
+    n, rows, row_bytes = 256, 772, 21744
+    g = torch.Generator(device=dev).manual_seed(5)
+    buf = torch.randint(0, 256, (n, rows, row_bytes), dtype=torch.uint8,
+                        device=dev, generator=g)
+    tabs = tables(n, rows, 7)
+    for t in tabs[:2]:
+        far_rows(t, n, rows)
+    check(buf, tabs, f"{n * rows * row_bytes} B buffer (> 2**32), 7 random "
+          f"sub-rounds")
+    check(buf, tabs, "the same, sub-rounds [1, 5) of 7", 1, 5)
+    del buf
+    torch.cuda.empty_cache()
+    return worst
+
+
 def phase_main(torch, rs, api, T):
     model = api.compile(T.mesh2d(16, 16))
     t0 = time.perf_counter()
@@ -294,12 +378,14 @@ def phase_main(torch, rs, api, T):
     g = torch.Generator(device="cuda").manual_seed(0)
     x = torch.randn(MAIN_NBYTES // 4, device="cuda", generator=g)
     s = ex.schedule
-    rs.launches = 0
+    ex.moves()                       # compacted once per plan, set-up
+    rs.launches = rs.rounds_launches = rs.subrounds = 0
     t0 = time.perf_counter()
     chk = ex.verify(x)
     torch.cuda.synchronize()
     t_verify = time.perf_counter() - t0
-    launches = rs.launches
+    launches, subrounds, steps = rs.rounds_launches, rs.subrounds, \
+        rs.launches
     out = ex.run(x)
     if tuple(out.shape) != (256,) + tuple(x.shape) or \
             not torch.isfinite(out).all() or not torch.equal(out[255], x):
@@ -308,20 +394,26 @@ def phase_main(torch, rs, api, T):
     del out
     if not chk.ok:
         fail(f"main path: devices {chk.missing[:16]} differ from the payload")
-    if launches != ex.num_launches:
-        fail(f"main path launched permute_step {launches} times, expected "
-             f"d x cycles = {ex.num_launches}")
+    if launches != 1 or ex.num_launches != 1 or steps or \
+            subrounds != ex.num_subrounds or \
+            subrounds != s.d * s.num_cycles(ex.num_groups):
+        fail(f"main path launched permute_rounds {launches} times for "
+             f"{subrounds} sub-rounds (and permute_step {steps} times), "
+             f"expected 1 launch for d x cycles = {ex.num_subrounds} "
+             f"sub-rounds and none")
     from repro_torch.device import runner
     lay = runner.packet_layout(x, s, ex.num_groups)
     secs = ex.measure(x, reps=3)
     log(f"[main] mesh2d 16x16, {MAIN_NBYTES} B float32 from root 0: "
         f"candidate {ex.candidate}, K={s.K}, m={ex.num_groups}, d={s.d}, "
         f"cycles={s.num_cycles(ex.num_groups)}, relay rows={s.num_relay}, "
-        f"launches={launches}, packet buffer {lay.buffer_bytes} B "
-        f"({lay.rows} rows x {lay.row_bytes} B x {lay.n} devices)")
+        f"{launches} permute_rounds launch for {subrounds} sub-rounds, "
+        f"{int(ex.moves().counts.sum())} row moves, packet buffer "
+        f"{lay.buffer_bytes} B ({lay.rows} rows x {lay.row_bytes} B x "
+        f"{lay.n} devices)")
     log(f"[main] plan+tables build {t_build:.3f} s; verify (run + compare) "
         f"{t_verify:.3f} s; ok on all {len(chk.required)} devices")
-    return ex, x, lay, launches, secs
+    return ex, x, lay, launches, subrounds, steps, secs
 
 
 def phase_small(torch, api, T, DeviceConfig, SimConfig):
@@ -343,14 +435,21 @@ def phase_small(torch, api, T, DeviceConfig, SimConfig):
                     fail(f"small case {topo.name} {algo} root {root}")
                 log(f"[small] {topo.name} {algo} root {root} bf16: "
                     f"bit-exact on {len(chk.required)} devices and equal to "
-                    f"the CPU run ({ex.candidate}, {ex.num_launches} "
-                    f"launches)")
+                    f"the CPU run ({ex.candidate}, {ex.num_subrounds} "
+                    f"sub-rounds in {ex.num_launches} launch)")
 
 
-def phase_timing(np, torch, rs, runner, ex, x, lay, rate):
-    """Per-launch times over the main path's whole cycle loop."""
+def phase_timing(np, torch, rs, runner, ex, x, lay, rate, secs):
+    """K1 over the main path's whole cycle loop, both designs on one card:
+    the old one launch per sub-round (``permute_step`` in a CUDA graph and
+    in an eager loop, per launch), the new one launch per broadcast
+    (``measure()``'s ``secs``; the same launch over the same sub-rounds with
+    every count 0, the barriers alone; the wrapper's host time), the bytes
+    bound, the plain versions and the ``index_select``/``index_copy_``
+    yardstick."""
     dev = torch.device("cuda")
     tabs = ex.tables()
+    moves = ex.moves()
     cycles, d = tabs.shape[:2]
     nl = cycles * d
     flat_tabs = [tabs[c, r] for c in range(cycles) for r in range(d)]
@@ -361,16 +460,46 @@ def phase_timing(np, torch, rs, runner, ex, x, lay, rate):
     s_ok_of_src = np.take_along_axis(s_ok, np.clip(src, 0, None), axis=1)
     live = (r_ok != 0) & (src >= 0) & (s_ok_of_src != 0)
     nbytes = int(((r_ok != 0).sum() + live.sum()) * lay.row_bytes)
-    bound_ms = nbytes / rate * 1e3 / nl
+    pairs = moves.pairs.cpu().numpy()
+    if int(moves.counts.sum()) != int((r_ok != 0).sum()) or \
+            int((pairs[:, 1] >= 0).sum()) != int(live.sum()):
+        fail("the compacted moves do not count the tables' writes and reads")
+    bound_ms = nbytes / rate * 1e3
+    # a reading for later work: runs of consecutive sub-rounds in which no
+    # row is written by one and read or written by another (the barriers
+    # a schedule of conflict-free runs would keep), counted on the host
+    offs = np.concatenate([[0], np.cumsum(moves.counts)])
+    runs, seen_r, seen_w = 0, set(), set()
+    for i in range(nl):
+        p = pairs[offs[i]:offs[i + 1]]
+        w, r = set(p[:, 0].tolist()), set(p[p[:, 1] >= 0, 1].tolist())
+        if not runs or r & seen_w or w & (seen_r | seen_w):
+            runs, seen_r, seen_w = runs + 1, set(), set()
+        seen_r |= r
+        seen_w |= w
 
     buf = runner.pack(x, lay, ex.root, dev)
-    kernel_ms = graph_ms(torch, lambda: [rs.permute_step(buf, t)
-                                         for t in flat_tabs], 1) / nl
-    eager_ms = min(cuda_ms(lambda: runner.run_cycles(buf, tabs))
-                   for _ in range(2)) / nl
+    step_graph_ms = graph_ms(torch, lambda: [rs.permute_step(buf, t)
+                                             for t in flat_tabs], 1)
+    step_eager_ms = min(cuda_ms(lambda: [rs.permute_step(buf, t)
+                                         for t in flat_tabs])
+                        for _ in range(2))
 
-    plain_ms = cuda_ms(lambda: [rs.permute_step_ref(buf, t)
-                                for t in flat_tabs]) / nl
+    idle = rs.Moves(pairs=moves.pairs[:0], offs=torch.zeros_like(moves.offs),
+                    counts=np.zeros_like(moves.counts), n=moves.n,
+                    rows=moves.rows)
+    barrier_ms = min(cuda_ms(lambda: rs.permute_rounds(buf, idle))
+                     for _ in range(3))
+    reps = 10
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        rs.permute_rounds(buf, moves)
+    host_ms = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    rounds_plain_ms = cuda_ms(lambda: rs.permute_rounds_ref(buf, moves))
+    step_plain_ms = cuda_ms(lambda: [rs.permute_step_ref(buf, t)
+                                     for t in flat_tabs])
 
     flat = buf.view(lay.n * lay.rows, lay.row_bytes)
     rows_ix = []
@@ -384,11 +513,35 @@ def phase_timing(np, torch, rs, runner, ex, x, lay, rate):
         for s_rows, d_rows in rows_ix:
             flat.index_copy_(0, d_rows, flat.index_select(0, s_rows))
     library()
-    library_ms = min(cuda_ms(library) for _ in range(2)) / nl
+    library_ms = min(cuda_ms(library) for _ in range(2))
     del buf, flat
-    return dict(ms=kernel_ms, eager_ms=eager_ms, plain_ms=plain_ms,
-                library_ms=library_ms, bound_ms=bound_ms, bytes=nbytes,
-                launches_timed=nl)
+    blocks, threads = rs.rounds_grid()
+    ms = secs * 1e3
+    log(f"[timing] permute_rounds (one launch, {nl} sub-rounds, a "
+        f"cooperative grid of {blocks} blocks x {threads} threads): "
+        f"{ms!r} ms a broadcast (measure(), min of 3), {ms / nl * 1e3!r} us "
+        f"a sub-round, {bound_ms / ms!r} of its {bound_ms!r} ms bound "
+        f"({nbytes} B at {rate / 1e12:.2f} TB/s); barrier-only (every count "
+        f"0) {barrier_ms!r} ms, {barrier_ms / nl * 1e3!r} us a sub-round; "
+        f"the wrapper's host time {host_ms!r} ms a call; plain "
+        f"(permute_rounds_ref) {rounds_plain_ms!r} ms; {runs} runs of "
+        f"conflict-free consecutive sub-rounds")
+    log(f"[timing] permute_step (the old design, {nl} launches): "
+        f"{step_graph_ms!r} ms in a CUDA graph ({step_graph_ms / nl * 1e3!r} "
+        f"us a launch), {step_eager_ms!r} ms in an eager loop "
+        f"({step_eager_ms / nl * 1e3!r} us a launch); plain "
+        f"(permute_step_ref) {step_plain_ms!r} ms; index_select + "
+        f"index_copy_ {library_ms!r} ms; permute_rounds takes "
+        f"{ms / step_graph_ms!r} of the graph's time")
+    return dict(ms=ms, barrier_ms=barrier_ms, host_ms=host_ms,
+                plain_ms=rounds_plain_ms, bound_ms=bound_ms, bytes=nbytes,
+                library_ms=library_ms, blocks=blocks, threads=threads,
+                step_ms=step_graph_ms / nl, step_graph_ms=step_graph_ms,
+                step_eager_ms=step_eager_ms / nl,
+                step_plain_ms=step_plain_ms / nl,
+                step_library_ms=library_ms / nl,
+                step_bound_ms=bound_ms / nl, subrounds=nl,
+                conflict_free_runs=runs)
 
 
 def ssd_inputs(torch, b, s, h, dh, ds, dtype, seed, dt_value=None, a=None):
@@ -541,14 +694,15 @@ def phase_prefill(torch, K, rs, ref, ops, cfg, LM, SyntheticTokens):
     cache = model.init_cache(b, s)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    K.launches = rs.launches = 0
+    K.launches = rs.launches = rs.rounds_launches = 0
     logits, cache = model.prefill(batch, cache)
     torch.cuda.synchronize()
     launches = K.launches
     peak = torch.cuda.max_memory_allocated()
-    if launches != cfg.layers or rs.launches:
+    if launches != cfg.layers or rs.launches or rs.rounds_launches:
         fail(f"prefill launched ssd_scan {launches} times (and permute_step "
-             f"{rs.launches}), expected {cfg.layers} and 0")
+             f"{rs.launches}, permute_rounds {rs.rounds_launches}), expected "
+             f"{cfg.layers}, 0 and 0")
     want_shape = (b, s, cfg.padded_vocab)
     if tuple(logits.shape) != want_shape:
         fail(f"prefill logits {tuple(logits.shape)}, expected {want_shape}")
@@ -790,7 +944,14 @@ def phase_attn_vs_plain(torch, FA, ref):
              ("odd 37/37 D 32 float32", (2, 4, 4, 37, 37, 32), f32, True),
              ("odd 37/37 D 32 bf16", (2, 4, 4, 37, 37, 32), bf, True),
              ("odd 37/37 D 32 non-causal float32", (2, 4, 4, 37, 37, 32),
-              f32, False)]
+              f32, False),
+             # zamba2-7b's head dim 112 at its prefill shape: bf16 on the
+             # D 128 tile with zero-filled columns, float32 on attn_fma<112>
+             ("zamba2-7b prefill shape D 112 bf16", ZAMBA_ATTN, bf, True),
+             ("zamba2-7b prefill shape D 112 float32", ZAMBA_ATTN, f32,
+              True),
+             ("ragged S=T=300 D 112 non-causal bf16", (2, 8, 4, 300, 300,
+                                                       112), bf, False)]
     main_err = None
     for i, (what, shape, dtype, causal) in enumerate(cases):
         args = attn_inputs(torch, *shape, dtype, 20 + i)
@@ -834,15 +995,17 @@ def phase_dense_prefill(torch, FA, K, rs, ref, ops, cfg, LM,
     cache = model.init_cache(b, s)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    FA.launches = K.launches = rs.launches = 0
+    FA.launches = K.launches = rs.launches = rs.rounds_launches = 0
     logits, cache = model.prefill(batch, cache)
     torch.cuda.synchronize()
     launches = FA.launches
     peak = torch.cuda.max_memory_allocated()
-    if launches != cfg.layers or K.launches or rs.launches:
+    if launches != cfg.layers or K.launches or rs.launches or \
+            rs.rounds_launches:
         fail(f"dense prefill launched flash_attention {launches} times (and "
-             f"ssd_scan {K.launches}, permute_step {rs.launches}), expected "
-             f"{cfg.layers}, 0 and 0")
+             f"ssd_scan {K.launches}, permute_step {rs.launches}, "
+             f"permute_rounds {rs.rounds_launches}), expected {cfg.layers}, "
+             f"0, 0 and 0")
     if int(cache["pos"]) != s or not bool(cache["k"][:, :, :, s - 1].any()):
         fail("the prefill did not fill the k/v cache")
     want_shape = (b, s, cfg.padded_vocab)
@@ -990,8 +1153,9 @@ def phase_attn_timing(torch, FA, ref, rate):
     work per call included) and as a CUDA graph of five calls
     (``graph_ms``, ``library_graph_ms``: device time only); ``host_ms`` is
     the wrapper's host time per call, 20 calls issued back to back without
-    waiting for the card. Then the float32 FMA kernel once at the same
-    shape, against its own bound (the FMA units' 67 TFLOP/s)."""
+    waiting for the card. Then K2 at zamba2-7b's head dim 112 in bf16
+    beside SDPA, and the float32 FMA kernel once at the prefill shape,
+    against its own bound (the FMA units' 67 TFLOP/s)."""
     b, hq, hkv, s, t, d = ATTN_MAIN
     args = attn_inputs(torch, *ATTN_MAIN, torch.bfloat16, 40)
     o = FA.flash_attention(*args)
@@ -1039,6 +1203,18 @@ def phase_attn_timing(torch, FA, ref, rate):
         f"bound; {kernel_ms / library_ms!r} times SDPA's time eager, "
         f"{kernel_graph_ms / library_graph_ms!r} in graphs")
     del args, o
+    # zamba2-7b's head dim 112 on the D 128 tile (columns 112-127 zero)
+    args = attn_inputs(torch, *ZAMBA_ATTN, torch.bfloat16, 42)
+    zb, zhq, _, zs, zt, zd = ZAMBA_ATTN
+    z_flops = 4 * zd * zb * zhq * attn_pairs(zs, zt, True)
+    z_ms = eager_ms(lambda: FA.flash_attention(*args))
+    z_sdpa = eager_ms(lambda: sdpa(*args, is_causal=True))
+    log(f"[timing] flash_attention at zamba2-7b's {ZAMBA_ATTN}, bf16, "
+        f"causal: {z_ms!r} ms per launch (eager loop of {reps}), "
+        f"{z_flops / z_ms / 1e9!r} TFLOP/s on the D 112 work, bound "
+        f"{z_flops / BF16_PEAK * 1e3!r} ms (operations); "
+        f"scaled_dot_product_attention {z_sdpa!r} ms (yardstick)")
+    del args
     args = attn_inputs(torch, *ATTN_MAIN, torch.float32, 41)
     f32_ms = min(cuda_ms(lambda: FA.flash_attention(*args))
                  for _ in range(2))
@@ -1052,7 +1228,7 @@ def phase_attn_timing(torch, FA, ref, rate):
     return dict(ms=kernel_ms, graph_ms=kernel_graph_ms, host_ms=host_ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=library_ms, library_graph_ms=library_graph_ms,
-                f32_ms=f32_ms)
+                f32_ms=f32_ms, d112_ms=z_ms)
 
 
 def main():
@@ -1086,26 +1262,28 @@ def main():
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     rate = mem_rate(name)
 
-    phase_build(FA, K)
+    regs = phase_build(FA, K)
     max_err = phase_kernel_vs_plain(np, torch, rs)
+    rounds_err = phase_rounds_vs_plain(np, torch, rs)
     K.launches = FA.launches = 0
-    ex, x, lay, launches, secs = phase_main(torch, rs, api, T)
+    ex, x, lay, launches, subrounds, steps_on_main, secs = phase_main(
+        torch, rs, api, T)
     if K.launches or FA.launches:
         fail(f"the broadcast path launched ssd_scan {K.launches} and "
              f"flash_attention {FA.launches} times")
     phase_small(torch, api, T, DeviceConfig, SimConfig)
-    tm = phase_timing(np, torch, rs, runner, ex, x, lay, rate)
+    tm = phase_timing(np, torch, rs, runner, ex, x, lay, rate, secs)
     moved = tm["bytes"]
-    log(f"[main] measure(): {secs * 1e3:.4f} ms per broadcast (eager launch "
-        f"loop, min of 3), {moved} B moved by the kernel = "
+    log(f"[main] measure(): {secs * 1e3!r} ms per broadcast (one "
+        f"permute_rounds launch, min of 3), {moved} B moved by the kernel = "
         f"{moved / secs / 1e9:.2f} GB/s effective; payload delivered to 255 "
         f"devices = {255 * MAIN_NBYTES / secs / 1e9:.2f} GB/s")
-    log(f"[timing] permute_step per launch over the {tm['launches_timed']} "
-        f"launches: kernel {tm['ms'] * 1e3:.3f} us (CUDA graph), eager "
-        f"loop {tm['eager_ms'] * 1e3:.3f} us, bound {tm['bound_ms'] * 1e3:.3f}"
-        f" us ({tm['bytes'] / tm['launches_timed']:.0f} B per launch at "
-        f"{rate / 1e12:.2f} TB/s), plain {tm['plain_ms'] * 1e3:.3f} us, "
-        f"index_select+index_copy_ {tm['library_ms'] * 1e3:.3f} us")
+    log(f"[summary] {name}: K1 broadcast {tm['ms']!r} ms in one "
+        f"permute_rounds launch ({tm['ms'] / subrounds * 1e3!r} us x "
+        f"{subrounds} sub-rounds; barrier-only {tm['barrier_ms']!r} ms; "
+        f"bound {tm['bound_ms']!r} ms) against {tm['step_graph_ms']!r} ms "
+        f"for {subrounds} permute_step launches in a CUDA graph; "
+        f"permute_rounds {regs['permute_rounds']}")
     del ex, x
     torch.cuda.empty_cache()
 
@@ -1156,13 +1334,28 @@ def main():
         f"{dpf['peak']} B; decode {ddec['step_ms']!r} ms per step; serve "
         f"{ddec['tok_per_s']!r} tok/s")
     kernels = [{
+        "name": "permute_rounds", "route": "cuda",
+        "source": "src/repro_torch/csrc/permute_rounds.cu",
+        "replaces": "src/repro/device/pallas_step.py:46",
+        "launches": launches, "subrounds": subrounds,
+        "max_abs_err": rounds_err,
+        "ms": tm["ms"], "plain_ms": tm["plain_ms"],
+        "bound_ms": tm["bound_ms"], "bound_by": "bytes",
+        "library_ms": tm["library_ms"], "barrier_ms": tm["barrier_ms"],
+        "host_ms": tm["host_ms"], "old_graph_ms": tm["step_graph_ms"],
+        "blocks": tm["blocks"], "threads": tm["threads"],
+        **regs["permute_rounds"],
+    }, {
+        # the one-sub-round kernel: the main path no longer launches it
+        # (launches 0); timed per launch over the same sub-rounds
         "name": "permute_step", "route": "cuda",
         "source": "src/repro_torch/csrc/permute_step.cu",
         "replaces": "src/repro/device/pallas_step.py:46",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": tm["ms"], "plain_ms": tm["plain_ms"],
-        "bound_ms": tm["bound_ms"], "bound_by": "bytes",
-        "library_ms": tm["library_ms"],
+        "launches": steps_on_main, "max_abs_err": max_err,
+        "ms": tm["step_ms"], "plain_ms": tm["step_plain_ms"],
+        "bound_ms": tm["step_bound_ms"], "bound_by": "bytes",
+        "library_ms": tm["step_library_ms"],
+        "eager_ms": tm["step_eager_ms"], "timed_launches": tm["subrounds"],
     }, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -1172,7 +1365,7 @@ def main():
         "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
         "library_ms": at["library_ms"], "graph_ms": at["graph_ms"],
         "library_graph_ms": at["library_graph_ms"],
-        "host_ms": at["host_ms"],
+        "host_ms": at["host_ms"], "d112_ms": at["d112_ms"],
     }, {
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/ssd_scan.cu",

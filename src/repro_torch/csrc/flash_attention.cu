@@ -63,12 +63,17 @@
 //     diagonal) are selects to -1e30 and p to 0, compiled in only for the
 //     tiles that cross a limit: a zero-filled key past T still scores 0.
 //   * O is divided by l in registers and stored by strides.
+//   * D 112 runs the D 128 instance, attn_tc<128, 112>, on tensor maps
+//     whose inner dimension is 112: TMA fills columns 112-127 of each box
+//     with zeros, so Q K^T is exact and P V gives zeros there, and the
+//     epilogue stores only the first 112 columns. The 224-byte row stride
+//     is a multiple of 16, as TMA needs; the scale stays 1/sqrt(112).
 // - float32: attn_fma, exact float32 on the FMA units (the float32
 //   tolerance of 3e-5 rules out TF32). One block per (batch, q head, 64
 //   query rows), longest causal tiles first; Q^T, K^T then V, and P^T in
 //   shared memory (85,504 B at D 128, two blocks per SM); a thread owns 4
 //   rows x 4 columns of the 64 x 64 score tile and 4 rows x D/16 columns of
-//   the accumulator.
+//   the accumulator. D 112 is an instance of its own (7 columns a thread).
 //
 // Interface: plain C, loaded with ctypes
 // (src/repro_torch/kernels/flash_attention.py). The tensor maps are built on
@@ -482,8 +487,10 @@ __device__ __forceinline__ Item item_of(int w, int B, int Hq, int S, int Tn,
 
 // A persistent kernel: gridDim.x blocks (at most one per SM) take the
 // `items` work items in turn, the first by their index and the rest from
-// the counter *next (0 at launch).
-template <int D>
+// the counter *next (0 at launch). It computes at head dim D and stores the
+// first DV columns (DV < D: the tensor maps' inner dimension is DV and TMA
+// fills the rest of each box with zeros).
+template <int D, int DV>
 __global__ void __launch_bounds__(NT, 1)
 attn_tc(const __grid_constant__ CUtensorMap tq,
         const __grid_constant__ CUtensorMap tk,
@@ -679,9 +686,11 @@ attn_tc(const __grid_constant__ CUtensorMap tq,
       if (row < S) {
 #pragma unroll
         for (int i = 0; i < D / 8; ++i)
-          *reinterpret_cast<__nv_bfloat162*>(ob + row * so.s + 8 * i + cq) =
-              __floats2bfloat162_rn(acc[4 * i + 2 * h] / lt,
-                                    acc[4 * i + 2 * h + 1] / lt);
+          if (8 * i < DV)
+            *reinterpret_cast<__nv_bfloat162*>(ob + row * so.s + 8 * i +
+                                               cq) =
+                __floats2bfloat162_rn(acc[4 * i + 2 * h] / lt,
+                                      acc[4 * i + 2 * h + 1] / lt);
       }
     }
     // a tile this consumer skipped is released once it has arrived, so
@@ -728,15 +737,16 @@ EncodeTiled encode_tiled() {
 // Code returned when a tensor map cannot be built: 10000 + the CUresult.
 constexpr int MAP_ERROR = 10000;
 
-// The (D, rows, heads, batch) view of a bf16 tensor with element strides
-// st = (batch, head, row), boxes of BOX x 128 x 1 x 1.
+// The (cols, rows, heads, batch) view of a bf16 tensor with element strides
+// st = (batch, head, row), boxes of BOX x 128 x 1 x 1 of the D-wide tile
+// (columns from cols to D are out of bounds: TMA reads them as zeros).
 template <int D>
-int make_map(CUtensorMap* map, const void* ptr, int rows, int heads,
+int make_map(CUtensorMap* map, const void* ptr, int cols, int rows, int heads,
              int batch, const long long* st) {
   using L = Tile<D>;
   EncodeTiled encode = encode_tiled();
   if (!encode) return MAP_ERROR + (int)CUDA_ERROR_NOT_FOUND;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)rows,
+  const cuuint64_t dims[4] = {(cuuint64_t)cols, (cuuint64_t)rows,
                               (cuuint64_t)heads, (cuuint64_t)batch};
   const cuuint64_t strides[3] = {(cuuint64_t)st[2] * 2, (cuuint64_t)st[1] * 2,
                                  (cuuint64_t)st[0] * 2};
@@ -749,13 +759,15 @@ int make_map(CUtensorMap* map, const void* ptr, int rows, int heads,
   return res == CUDA_SUCCESS ? 0 : MAP_ERROR + (int)res;
 }
 
-// next: one int, 0 at launch (the work counter).
-template <int D>
+// next: one int, 0 at launch (the work counter). DV: the tensors' head dim
+// (D, or less for the zero-filled route).
+template <int D, int DV = D>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Hq, int Hkv, int S, int Tn, const long long* st, float scale,
            int causal, int* next, cudaStream_t stream) {
   static std::atomic<uint64_t> smem_set{0};
-  int err = set_smem_once((const void*)attn_tc<D>, Tile<D>::SMEM, smem_set);
+  int err = set_smem_once((const void*)attn_tc<D, DV>, Tile<D>::SMEM,
+                          smem_set);
   if (err != (int)cudaSuccess) return err;
   const long long items = (long long)((S + BQ - 1) / BQ) * Hq * B;
   if (items == 0) return (int)cudaSuccess;
@@ -766,9 +778,9 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
                                          dev)))
     return err;
   CUtensorMap tq, tk, tv;
-  if ((err = make_map<D>(&tq, q, S, Hq, B, st)) ||
-      (err = make_map<D>(&tk, k, Tn, Hkv, B, st + 3)) ||
-      (err = make_map<D>(&tv, v, Tn, Hkv, B, st + 6)))
+  if ((err = make_map<D>(&tq, q, DV, S, Hq, B, st)) ||
+      (err = make_map<D>(&tk, k, DV, Tn, Hkv, B, st + 3)) ||
+      (err = make_map<D>(&tv, v, DV, Tn, Hkv, B, st + 6)))
     return err;
   const Strides so{st[9], st[10], st[11]};
   // sections of the schedule: as many kv heads as L2_BYTES of K and V
@@ -777,7 +789,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   const long long heads = std::max(1ll, L2_BYTES / (4ll * Tn * D));
   const int sect = (int)std::min(heads * group, (long long)B * Hq);
   const int blocks = (int)std::min(items, (long long)sms);
-  attn_tc<D><<<blocks, NT, Tile<D>::SMEM, stream>>>(
+  attn_tc<D, DV><<<blocks, NT, Tile<D>::SMEM, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), so, B, Hq, group, S, Tn,
       scale * LOG2E, causal, sect, (int)items, next);
   return (int)cudaGetLastError();
@@ -788,7 +800,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 }  // namespace
 
 // o = attention(q, k, v) for q, k, v and o of one dtype (bf16 when is_bf16,
-// else float32), D in {16, 32, 64, 128}. strides: 12 element strides, the
+// else float32), D in {16, 32, 64, 112, 128}. strides: 12 element strides, the
 // (batch, head, row) strides of q, k, v and o in that order; the d stride is
 // 1. For bf16 the base addresses of q, k and v are 16-byte aligned and their
 // strides multiples of 8 elements, and T > 0 (the tensor maps); next is one
@@ -810,10 +822,12 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
     case 16: return tc::launch<16>(K2_ARGS, n, s);
     case 32: return tc::launch<32>(K2_ARGS, n, s);
     case 64: return tc::launch<64>(K2_ARGS, n, s);
+    case 112: return tc::launch<128, 112>(K2_ARGS, n, s);
     case 128: return tc::launch<128>(K2_ARGS, n, s);
     case -16: return fma::launch<16>(K2_ARGS, s);
     case -32: return fma::launch<32>(K2_ARGS, s);
     case -64: return fma::launch<64>(K2_ARGS, s);
+    case -112: return fma::launch<112>(K2_ARGS, s);
     case -128: return fma::launch<128>(K2_ARGS, s);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -821,9 +835,10 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
 }
 
 // Dynamic shared memory per block of each kernel, in bytes, as its launch
-// asks for it: [is_bf16][i] for D = 16 << i.
-extern "C" const int flash_attention_smem[2][4] = {
+// asks for it: [is_bf16][i] for D = 16, 32, 64, 112, 128 (bf16 112 runs the
+// D 128 tile).
+extern "C" const int flash_attention_smem[2][5] = {
     {fma::smem_bytes<16>(), fma::smem_bytes<32>(), fma::smem_bytes<64>(),
-     fma::smem_bytes<128>()},
+     fma::smem_bytes<112>(), fma::smem_bytes<128>()},
     {tc::Tile<16>::SMEM, tc::Tile<32>::SMEM, tc::Tile<64>::SMEM,
-     tc::Tile<128>::SMEM}};
+     tc::Tile<128>::SMEM, tc::Tile<128>::SMEM}};

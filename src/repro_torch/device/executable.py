@@ -75,9 +75,15 @@ class ExecutablePlan:
         return runner.resolve_device(self.device.device)
 
     @property
-    def num_launches(self) -> int:
-        """Round-step launches per broadcast: ``d`` per cycle."""
+    def num_subrounds(self) -> int:
+        """Sub-rounds per broadcast: ``d`` per cycle."""
         return self.schedule.d * self.schedule.num_cycles(self.num_groups)
+
+    @property
+    def num_launches(self) -> int:
+        """Kernel launches per broadcast on a GPU: one ``permute_rounds``
+        for all sub-rounds (none when there are none)."""
+        return int(self.num_subrounds > 0)
 
     def tables(self) -> torch.Tensor:
         """The run's int32 ``[cycles, d, 5, n]`` tables on the device,
@@ -88,12 +94,31 @@ class ExecutablePlan:
                 self.schedule, self.num_groups, self.torch_device)
         return tabs
 
+    def moves(self) -> "runner.Moves":
+        """The run's compacted moves (``runner.build_moves``) on the device,
+        built on first use and reused by every run."""
+        mv = self.__dict__.get("_moves")
+        if mv is None:
+            mv = self._moves = runner.build_moves(
+                self.schedule, self.num_groups, self.torch_device)
+        return mv
+
+    def _program(self) -> dict:
+        """What ``run_cycles`` needs on the plan's device: the moves on a
+        GPU, the tables on the CPU."""
+        if self.torch_device.type == "cuda":
+            return dict(moves=self.moves())
+        return dict(tabs=self.tables())
+
     def run(self, x: torch.Tensor) -> torch.Tensor:
         """Execute the broadcast; returns the per-device copies stacked on a
         leading axis (shape ``(n,) + x.shape``) on the plan's device.
         ``x`` is only read."""
+        prog = self._program()
         return runner.bbs_broadcast(x, self.schedule, self.num_groups,
-                                    self.torch_device, tables=self.tables())
+                                    self.torch_device,
+                                    tables=prog.get("tabs"),
+                                    moves=prog.get("moves"))
 
     def verify(self, x: torch.Tensor) -> DeviceDelivery:
         """Run and compare every device's bytes with the payload's, on the
@@ -119,13 +144,14 @@ class ExecutablePlan:
     def measure(self, x: Optional[torch.Tensor] = None,
                 reps: int = 5) -> float:
         """Seconds per broadcast: the minimum over ``reps`` timed runs of the
-        cycle loop, after one untimed warm-up run. Each run starts from
-        freshly packed buffers, made outside the timed window. Timed with
-        ``torch.cuda.Event`` on a GPU and ``perf_counter`` on the CPU."""
+        cycle loop (on a GPU one ``permute_rounds`` launch), after one
+        untimed warm-up run. Each run starts from freshly packed buffers,
+        made outside the timed window. Timed with ``torch.cuda.Event`` on a
+        GPU and ``perf_counter`` on the CPU."""
         dev = self.torch_device
         x = (self.default_payload() if x is None else x).to(dev)
         lay = runner.packet_layout(x, self.schedule, self.num_groups)
-        tabs = self.tables()
+        prog = self._program()
         best = float("inf")
         for i in range(reps + 1):
             buf = runner.pack(x, lay, self.root, dev)
@@ -134,13 +160,13 @@ class ExecutablePlan:
                 end = torch.cuda.Event(enable_timing=True)
                 torch.cuda.synchronize(dev)
                 start.record()
-                runner.run_cycles(buf, tabs)
+                runner.run_cycles(buf, **prog)
                 end.record()
                 end.synchronize()
                 t = start.elapsed_time(end) / 1e3
             else:
                 t0 = time.perf_counter()
-                runner.run_cycles(buf, tabs)
+                runner.run_cycles(buf, **prog)
                 t = time.perf_counter() - t0
             del buf
             if i:                                   # run 0 is the warm-up

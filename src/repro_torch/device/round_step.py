@@ -1,4 +1,4 @@
-"""One sub-round of the BBS cycle loop on n virtual devices.
+"""The BBS cycle loop's round step on n virtual devices.
 
 The n nodes of the fabric are n *virtual devices* whose packet buffers are
 one ``[n, rows, row_bytes]`` uint8 tensor. One sub-round -- the reference's
@@ -18,22 +18,38 @@ rows are raw bytes, so any payload dtype comes through bit-exact. Indexes
 must lie in ``[0, rows)`` (``repro_torch.device.runner.build_tables``
 checks them).
 
-``permute_step`` launches the hand-written CUDA kernel
-(``csrc/permute_step.cu``) on a CUDA tensor and runs the plain version
+``permute_step`` runs one sub-round: it launches the hand-written CUDA
+kernel ``csrc/permute_step.cu`` on a CUDA tensor and runs the plain version
 ``permute_step_ref`` on a CPU tensor; on any other device it raises.
 ``launches`` counts the kernel's launches.
+
+``permute_rounds`` runs a whole sequence of sub-rounds in one launch of
+``csrc/permute_rounds.cu`` (a persistent grid with a grid-wide barrier
+between sub-rounds), from the compacted moves of ``compact_moves``: for
+each sub-round only the ``(dst_row, src_row)`` pairs of its writing
+receivers, as row indexes into the ``[n * rows, row_bytes]`` view of the
+buffer. Its plain version ``permute_rounds_ref`` applies them sub-round by
+sub-round. ``rounds_launches`` counts its launches and ``subrounds`` the
+sub-rounds they ran.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 launches = 0          # kernel launches of permute_step since the last reset
+rounds_launches = 0   # kernel launches of permute_rounds since the last reset
+subrounds = 0         # sub-rounds those permute_rounds launches ran
 
 _fn = None
+_rounds_lib = None
+# permute_rounds' barrier word, zeroed once, per (device, stream)
+_workspaces: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def permute_step_ref(buf: torch.Tensor, tab: torch.Tensor) -> torch.Tensor:
@@ -123,4 +139,176 @@ def permute_step(buf: torch.Tensor, tab: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(f"permute_step kernel launch failed: CUDA error "
                            f"{rc}")
     launches += 1
+    return buf
+
+
+@dataclasses.dataclass(frozen=True)
+class Moves:
+    """A sequence of sub-rounds compacted to the moves that happen.
+
+    ``pairs`` int64 ``[M, 2]``: ``(dst_row, src_row)`` of every receiver
+    with ``r_ok``, as row indexes ``v * rows + r_ix[v]`` into the
+    ``[n * rows, row_bytes]`` view of the buffer; ``src_row`` is -1 for a
+    zero write. ``offs`` int64 ``[S + 1]``: sub-round s's pairs are
+    ``pairs[offs[s]:offs[s + 1]]``. ``counts`` is the host copy of each
+    sub-round's number of pairs, and ``n, rows`` the buffer they index."""
+
+    pairs: torch.Tensor
+    offs: torch.Tensor
+    counts: np.ndarray
+    n: int
+    rows: int
+
+    @property
+    def num_subrounds(self) -> int:
+        return len(self.counts)
+
+    @property
+    def device(self) -> torch.device:
+        return self.pairs.device
+
+    def to(self, device) -> "Moves":
+        return dataclasses.replace(self, pairs=self.pairs.to(device),
+                                   offs=self.offs.to(device))
+
+
+def compact_moves(tabs: np.ndarray, rows: int) -> Moves:
+    """The moves of a sequence of sub-round tables (int ``[..., 5, n]``, the
+    leading dimensions flattened in order) on a buffer of ``rows`` rows per
+    device, on the CPU. Raises if a live index lies outside ``[0, rows)``."""
+    tabs = np.asarray(tabs)
+    n = tabs.shape[-1]
+    t = tabs.reshape(-1, 5, n).astype(np.int64)
+    src, s_ix, s_ok, r_ix, r_ok = (t[:, i] for i in range(5))
+    u = np.clip(src, 0, None)
+    live = (src >= 0) & (np.take_along_axis(s_ok, u, axis=1) != 0)
+    s_row = np.take_along_axis(s_ix, u, axis=1)
+    write = r_ok != 0
+    for ix, ok in ((s_row, live & write), (r_ix, write)):
+        bad = ok & ((ix < 0) | (ix >= rows))
+        if bad.any():
+            raise ValueError(f"a sub-round table indexes a row outside "
+                             f"[0, {rows})")
+    v = np.arange(n, dtype=np.int64)[None]
+    src_row = np.where(live, u * rows + s_row, -1)
+    pairs = np.stack([(v * rows + r_ix)[write], src_row[write]], axis=1)
+    counts = write.sum(axis=1).astype(np.int64)
+    offs = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+    return Moves(pairs=torch.from_numpy(np.ascontiguousarray(pairs)),
+                 offs=torch.from_numpy(offs), counts=counts, n=n, rows=rows)
+
+
+def _span(moves: Moves, s0: int, s1: Optional[int]) -> Tuple[int, int]:
+    s1 = moves.num_subrounds if s1 is None else s1
+    if not 0 <= s0 <= s1 <= moves.num_subrounds:
+        raise ValueError(f"sub-rounds [{s0}, {s1}) are not a range of the "
+                         f"{moves.num_subrounds} moves hold")
+    return s0, s1
+
+
+def _check_rounds(buf: torch.Tensor, moves: Moves) -> None:
+    if buf.dtype != torch.uint8 or buf.dim() != 3 or not buf.is_contiguous():
+        raise ValueError(f"buf must be a contiguous [n, rows, row_bytes] "
+                         f"uint8 tensor, got {buf.dtype} {tuple(buf.shape)}")
+    if tuple(buf.shape[:2]) != (moves.n, moves.rows):
+        raise ValueError(f"the moves index a [{moves.n}, {moves.rows}] "
+                         f"buffer, got {tuple(buf.shape)}")
+    if moves.device != buf.device or moves.offs.device != buf.device:
+        raise ValueError(f"the moves lie on {moves.device}, the buffer on "
+                         f"{buf.device}")
+
+
+def permute_rounds_ref(buf: torch.Tensor, moves: Moves, s0: int = 0,
+                       s1: Optional[int] = None) -> torch.Tensor:
+    """The plain PyTorch version of ``permute_rounds``: sub-rounds
+    ``[s0, s1)`` of ``moves`` one after another, in place on ``buf``; every
+    read of a sub-round precedes its writes."""
+    _check_rounds(buf, moves)
+    s0, s1 = _span(moves, s0, s1)
+    flat = buf.view(moves.n * moves.rows, buf.shape[2])
+    offs = np.concatenate([[0], np.cumsum(moves.counts)]).tolist()
+    for s in range(s0, s1):
+        if offs[s] == offs[s + 1]:
+            continue
+        dst, src = moves.pairs[offs[s]:offs[s + 1]].unbind(1)
+        val = flat[src.clamp(min=0)]              # a copy: reads first
+        val[src < 0] = 0
+        flat[dst] = val
+    return buf
+
+
+def _rounds_kernel():
+    global _rounds_lib
+    if _rounds_lib is None:
+        from repro_torch.nvcc import load
+        lib = load("permute_rounds")
+        lib.permute_rounds.argtypes = [ctypes.c_void_p] * 3 + \
+            [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+        lib.permute_rounds.restype = ctypes.c_int
+        lib.permute_rounds_blocks.argtypes = []
+        lib.permute_rounds_blocks.restype = ctypes.c_int
+        _rounds_lib = lib
+    return _rounds_lib
+
+
+def rounds_grid(device=None) -> Tuple[int, int]:
+    """(blocks, threads per block) of ``permute_rounds``' cooperative grid
+    on a CUDA device (the current one by default)."""
+    lib = _rounds_kernel()
+    with torch.cuda.device(device):
+        blocks = lib.permute_rounds_blocks()
+    if blocks <= 0:
+        why = f"CUDA error {-blocks}" if blocks else "no block fits an SM"
+        raise RuntimeError(f"permute_rounds cannot size its cooperative "
+                           f"grid: {why}")
+    return blocks, ctypes.c_int.in_dll(lib, "permute_rounds_threads").value
+
+
+def _workspace(device: torch.device, stream: int) -> torch.Tensor:
+    key = (device.index, stream)
+    ws = _workspaces.get(key)
+    if ws is None:
+        ws = _workspaces[key] = torch.zeros(1, dtype=torch.int32,
+                                            device=device)
+    return ws
+
+
+def permute_rounds(buf: torch.Tensor, moves: Moves, s0: int = 0,
+                   s1: Optional[int] = None) -> torch.Tensor:
+    """Sub-rounds ``[s0, s1)`` of ``moves`` (all by default) on all virtual
+    devices, in place: one launch of the persistent CUDA kernel for a CUDA
+    ``buf``, ``permute_rounds_ref`` for a CPU ``buf``. A refused launch
+    raises; nothing falls back to one launch per sub-round."""
+    global rounds_launches, subrounds
+    _check_rounds(buf, moves)
+    s0, s1 = _span(moves, s0, s1)
+    if buf.device.type == "cpu":
+        return permute_rounds_ref(buf, moves, s0, s1)
+    if buf.device.type != "cuda":
+        raise ValueError(f"permute_rounds runs on cuda or cpu, not "
+                         f"{buf.device}")
+    n, rows, row_bytes = buf.shape
+    if row_bytes % 16 or buf.data_ptr() % 16:
+        raise ValueError(f"the kernel moves 16-byte chunks: row_bytes "
+                         f"{row_bytes} and the buffer address must be "
+                         f"multiples of 16")
+    if s0 == s1 or n == 0 or row_bytes == 0:
+        return buf
+    chunks = row_bytes // 16
+    if int(moves.counts[s0:s1].max()) * chunks > 2 ** 30:
+        raise ValueError(f"a sub-round moves more than 2**30 chunks of 16 "
+                         f"bytes ({int(moves.counts[s0:s1].max())} rows of "
+                         f"{chunks})")
+    lib = _rounds_kernel()
+    with torch.cuda.device(buf.device):
+        stream = torch.cuda.current_stream(buf.device).cuda_stream
+        ws = _workspace(buf.device, stream)
+        rc = lib.permute_rounds(buf.data_ptr(), moves.pairs.data_ptr(),
+                                moves.offs.data_ptr(), s0, s1, chunks,
+                                ws.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"permute_rounds cooperative launch failed: CUDA "
+                           f"error {rc}")
+    rounds_launches += 1
+    subrounds += s1 - s0
     return buf

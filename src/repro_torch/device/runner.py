@@ -4,11 +4,13 @@ The reference (``repro.device.runner``) runs the cycle loop as a
 ``lax.scan`` over a shard_map program, one ``collective-permute`` per
 sub-round with the packed scatter+gather step between permutes. Here the
 n devices of the fabric are *virtual*: their packet buffers are one
-``[n, rows, row_bytes]`` uint8 tensor on one device, and each sub-round --
-permute, scatter and gather of all n devices -- is one launch of
-``repro_torch.device.round_step.permute_step``. The cycle loop is a static
-sequence of ``cycles x d`` launches whose tables (``build_tables``) are
-uploaded once per run, so the loop never waits on the host.
+``[n, rows, row_bytes]`` uint8 tensor on one device, and each sub-round is
+the permute, scatter and gather of all n devices at once. On a GPU the
+whole cycle loop -- ``cycles x d`` sub-rounds -- is one launch of
+``repro_torch.device.round_step.permute_rounds`` over the plan's compacted
+moves (``build_moves``, uploaded once per plan); on the CPU it is the plain
+sub-round ``permute_step`` once per (cycle, sub-round) of the tables
+(``build_tables``).
 
 Conventions kept from the reference: the payload is padded to ``m*K``
 packet rows, relay rows follow them; only the root's buffer starts with
@@ -29,7 +31,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.device.round_step import permute_step
+from repro_torch.device.round_step import (Moves, compact_moves,
+                                           permute_rounds, permute_step)
 from repro_torch.device.schedule import _NOSEND, DeviceSchedule
 
 
@@ -89,6 +92,15 @@ def build_tables(sched: DeviceSchedule, num_groups: int,
                            device=resolve_device(device))
 
 
+def build_moves(sched: DeviceSchedule, num_groups: int,
+                device="cuda") -> Moves:
+    """``slot_tables`` compacted to the moves that happen
+    (``round_step.compact_moves``), on the device, for ``permute_rounds``."""
+    rows = num_groups * sched.K + sched.num_relay
+    return compact_moves(slot_tables(sched, num_groups), rows).to(
+        resolve_device(device))
+
+
 @dataclasses.dataclass(frozen=True)
 class PacketLayout:
     """How a payload maps onto ``[n, rows, row_bytes]`` packet buffers:
@@ -139,10 +151,15 @@ def pack(x: torch.Tensor, lay: PacketLayout, root: int,
     return buf
 
 
-def run_cycles(buf: torch.Tensor, tabs: torch.Tensor) -> torch.Tensor:
-    """The cycle loop: one ``permute_step`` per (cycle, sub-round). The
-    reference's cycle-start gather (a round step with no write) needs no
-    launch: nothing is written between it and the sub-round-0 read."""
+def run_cycles(buf: torch.Tensor, tabs: torch.Tensor = None,
+               moves: Moves = None) -> torch.Tensor:
+    """The cycle loop. On a CUDA ``buf``: one ``permute_rounds`` launch over
+    every sub-round of ``moves`` (``build_moves``). Elsewhere: one
+    ``permute_step`` per (cycle, sub-round) of ``tabs`` (``build_tables``).
+    The reference's cycle-start gather (a round step with no write) needs
+    no work: nothing is written between it and the sub-round-0 read."""
+    if buf.device.type == "cuda":
+        return permute_rounds(buf, moves)
     cycles, d = tabs.shape[:2]
     for c in range(cycles):
         for r in range(d):
@@ -165,16 +182,21 @@ def unpack(buf: torch.Tensor, lay: PacketLayout,
 
 
 def bbs_broadcast(x: torch.Tensor, sched: DeviceSchedule, num_groups: int,
-                  device="cuda", tables: torch.Tensor = None) -> torch.Tensor:
+                  device="cuda", tables: torch.Tensor = None,
+                  moves: Moves = None) -> torch.Tensor:
     """Broadcast ``x`` from the schedule's root to all ``n`` virtual
     devices; returns the stacked copies ``(n,) + x.shape`` on ``device``.
-    ``tables`` reuses a ``build_tables`` upload of the same schedule."""
+    ``moves`` (on a GPU) or ``tables`` (on the CPU) reuses a ``build_moves``
+    or ``build_tables`` upload of the same schedule."""
     dev = resolve_device(device)
     lay = packet_layout(x, sched, num_groups)
-    if tables is None:
+    if dev.type == "cuda":
+        if moves is None:
+            moves = build_moves(sched, num_groups, dev)
+    elif tables is None:
         tables = build_tables(sched, num_groups, dev)
     buf = pack(x, lay, sched.root, dev)
-    run_cycles(buf, tables)
+    run_cycles(buf, tables, moves)
     return unpack(buf, lay, x)
 
 

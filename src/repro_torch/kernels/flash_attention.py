@@ -14,7 +14,9 @@ blocks, one per SM, take (batch, q head, 128 query rows) items from a
 counter this wrapper zeroes; in each, a TMA producer warpgroup and two
 wgmma consumer warpgroups of 64 rows, P rounded to bfloat16 for P.V);
 float32 runs exact on the FMA units (one block per (batch, q head, 64 query
-rows)). Both take D in {16, 32, 64, 128} and read every tensor by strides
+rows)). Both take D in {16, 32, 64, 112, 128} (bfloat16 runs D 112 on the
+D 128 kernel, TMA filling the missing columns with zeros) and read every
+tensor by strides
 as long as its last (d) stride is 1, so the model's (B, S, H, D)
 projections viewed as (B, H, S, D) need no copy; the output has q's
 strides. bfloat16 inputs also need what TMA needs: 16-byte-aligned base
@@ -22,7 +24,9 @@ addresses and strides that are multiples of 16 bytes. On a CPU tensor it
 runs the plain version ``repro_torch.kernels.ref.attention_ref``; on any
 other device, or on inputs the kernel does not take, it raises. It never
 falls back from the kernel to the plain version, nor from one kernel to
-the other.
+the other. The kernel has no backward: with grad enabled, an input off the
+CPU that requires grad raises (``ref.refuse_grad``) instead of giving an
+output with no ``grad_fn``.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ import torch
 
 from repro_torch.kernels import ref
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 112, 128)
 
 launches = 0               # kernel launches of flash_attention since reset
 _MAP_ERROR = 10000         # the C entry's code for a tensor map it cannot build
@@ -100,6 +104,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if len(devs) != 1:
         raise ValueError(f"q, k and v lie on several devices: {devs}")
     scale = ref.default_scale(d) if scale is None else float(scale)
+    ref.refuse_grad("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, causal=causal, scale=scale)
     if q.device.type != "cuda":

@@ -53,6 +53,20 @@ def attention_dims(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     return b, hq, hkv, hq // hkv, s, t, d
 
 
+def refuse_grad(name: str, *inputs: torch.Tensor) -> None:
+    """Raises when grad is enabled and an input that does not lie on the
+    CPU requires grad: the hand-written kernels have no backward, and their
+    output would silently carry no ``grad_fn``. On the CPU the plain
+    versions differentiate."""
+    held = [t for t in inputs if t.requires_grad and t.device.type != "cpu"]
+    if held and torch.is_grad_enabled():
+        raise RuntimeError(
+            f"{name}: an input on {held[0].device} requires grad, and the "
+            f"port's kernel has no backward yet (the training slice, "
+            f"ROADMAP.md queue 1, item 6, brings one); call it under "
+            f"torch.no_grad() or on tensors that do not require grad")
+
+
 def default_scale(d: int) -> float:
     """The float32 ``1/sqrt(D)`` of the kernel and of both plain versions."""
     return float(torch.tensor(1.0 / d ** 0.5, dtype=torch.float32))

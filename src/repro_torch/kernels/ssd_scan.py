@@ -27,7 +27,10 @@ the one entry point, never one in place of the other:
 
 On a CPU tensor it runs the plain version
 ``repro_torch.kernels.ref.ssd_chunked``; on any other device it raises. It
-never falls back from a kernel to the plain version.
+never falls back from a kernel to the plain version. The kernels have no
+backward: with grad enabled, an input off the CPU that requires grad
+raises (``ref.refuse_grad``) instead of giving an output with no
+``grad_fn``.
 """
 
 from __future__ import annotations
@@ -96,6 +99,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     ``ref.ssd_chunked`` for CPU tensors."""
     global launches
     _check(x, dt, A, B, C)
+    ref.refuse_grad("ssd_scan", x, dt, A, B, C)
     if x.device.type == "cpu":
         # one chunk either way where chunk_of differs from min(chunk, seq)
         return ref.ssd_chunked(x, dt, A, B, C, chunk=chunk)

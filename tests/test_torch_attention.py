@@ -270,3 +270,41 @@ def test_tensor_core_arithmetic_within_bf16_tolerance(s, t):
     # the bf16 rounding of P is visible, and small against the tolerance
     exact = _tensor_core_emulation(*[x.float() for x in targs]).float()
     assert 0 < float((exact - want.float()).abs().max()) < 2e-2
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_head_dim_112_matches_reference(causal, dtype):
+    """zamba2-7b's head dim 112 (the K2 wrapper takes it on the card; here
+    its CPU path): held to the reference's Pallas kernel in interpret mode
+    and to its XLA attention, at the tolerances of tests/test_kernels.py;
+    the scale is 1/sqrt(112)."""
+    b, hq, hkv, s, t, d = 1, 4, 2, 96, 96, 112
+    args = _inputs(112 + causal, b, hq, hkv, s, t, d, dtype)
+    jargs = [jnp.asarray(a) for a in args]
+    targs = [_torch(a) for a in args]
+    got = K.flash_attention(*targs, causal=causal)
+    assert tuple(got.shape) == (b, hq, s, d) and got.dtype == targs[0].dtype
+    fn = jax.jit(functools.partial(jflash, causal=causal, interpret=True,
+                                   block_q=64, block_k=64))
+    np.testing.assert_allclose(_np(got), _np(fn(*jargs)), **tol_for(dtype))
+    np.testing.assert_allclose(_np(got), _np(jops.attention(
+        *jargs, causal=causal)), **tol_for(dtype))
+    assert ref.default_scale(d) == float(np.float32(1.0 / np.sqrt(112)))
+
+
+def test_kernel_input_checks_take_head_dim_112():
+    """The kernel takes D 112 in both dtypes (224-byte rows meet TMA's
+    16-byte strides) and still rejects any other D outside HEAD_DIMS."""
+    assert 112 in K.HEAD_DIMS
+    x = torch.zeros((2, 10, 6, 112))
+    q = x.transpose(1, 2)
+    kv = torch.zeros((2, 10, 3, 112)).transpose(1, 2)
+    want = (6720, 112, 672, 3360, 112, 336, 3360, 112, 336)
+    assert K.kernel_strides(q, kv, kv) == want
+    assert K.kernel_strides(q.bfloat16(), kv.bfloat16(), kv.bfloat16()) == \
+        want
+    for d in (48, 96, 120, 256):
+        other = torch.zeros((1, 2, 8, d))
+        with pytest.raises(ValueError, match="head dim"):
+            K.kernel_strides(other, other, other)

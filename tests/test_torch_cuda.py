@@ -1,5 +1,7 @@
 """Port tests that need an NVIDIA GPU (marker ``cuda``): the hand-written
-kernels (the round step K1, flash attention K2, the SSD scan K3) against
+kernels (the round step K1 -- one sub-round a launch, and every sub-round
+of a broadcast in one persistent launch --, flash attention K2, the SSD
+scan K3) against
 their plain PyTorch versions, small broadcasts on the card against the same
 broadcasts on the CPU, and the Mamba-2 and dense LMs on the card against
 the CPU. They skip on a host
@@ -99,13 +101,145 @@ def test_small_broadcast_on_card_matches_cpu(gpu, algo):
                          .astype(np.float32)).to(torch.bfloat16)
     ex = model.executable(root=3, nbytes=6000, algo=algo)
     assert ex.torch_device.type == "cuda"
-    before = rs.launches
+    before = (rs.launches, rs.rounds_launches, rs.subrounds)
     out = ex.run(x)
-    assert rs.launches - before == ex.num_launches
+    # one permute_rounds launch runs every sub-round; permute_step none
+    assert ex.num_launches == 1
+    assert (rs.launches, rs.rounds_launches, rs.subrounds) == (
+        before[0], before[1] + 1, before[2] + ex.num_subrounds)
     cpu = model.executable(root=3, nbytes=6000, algo=algo, config=SimConfig(
         device=DeviceConfig(device="cpu"))).run(x)
     assert torch.equal(out.cpu().view(torch.int16), cpu.view(torch.int16))
     assert ex.verify(x).ok
+
+
+def _rounds_buffer(gpu, rng, n, rows, row_bytes):
+    return torch.from_numpy(rng.integers(0, 256, (n, rows, row_bytes),
+                                         dtype=np.uint8)).to(gpu)
+
+
+def _rounds_tables(rng, n, rows, count, idle_every=3):
+    """``count`` random sub-round tables; every ``idle_every``-th has no
+    writer (count 0), so its barrier is all it does."""
+    from repro_torch.device import round_step as rs
+
+    tabs = np.stack([rs.random_table(rng, n, rows) for _ in range(count)])
+    tabs[idle_every - 1::idle_every, 4] = 0
+    return tabs
+
+
+@pytest.mark.parametrize("n,rows,row_bytes,count",
+                         [(64, 9, 48, 1), (64, 9, 48, 7), (64, 9, 48, 64),
+                          (1, 4, 32, 7), (3, 1, 16, 7), (256, 5, 21744, 7),
+                          (17, 33, 1008, 64)])
+def test_rounds_kernel_matches_plain(gpu, n, rows, row_bytes, count):
+    """``permute_rounds`` bit-identical to ``permute_rounds_ref`` on random
+    sequences with every edge case of ``random_table`` and sub-rounds with
+    no writer; one launch for all sub-rounds; two launches from the same
+    start give the same bytes."""
+    from repro_torch.device import round_step as rs
+
+    rng = np.random.default_rng(n * 100 + count)
+    tabs = _rounds_tables(rng, n, rows, count)
+    moves = rs.compact_moves(tabs, rows)
+    assert moves.counts[2::3].sum() == 0
+    buf = _rounds_buffer(gpu, rng, n, rows, row_bytes)
+    want = rs.permute_rounds_ref(buf.clone(), moves.to(gpu))
+    dmoves = moves.to(gpu)
+    before = (rs.launches, rs.rounds_launches, rs.subrounds)
+    got = rs.permute_rounds(buf.clone(), dmoves)
+    again = rs.permute_rounds(buf.clone(), dmoves)
+    torch.cuda.synchronize()
+    assert (rs.launches, rs.rounds_launches, rs.subrounds) == (
+        before[0], before[1] + 2, before[2] + 2 * count)
+    assert torch.equal(got, want)
+    assert torch.equal(again, got)
+
+
+def test_rounds_kernel_span_and_barrier_only(gpu):
+    """A range [s0, s1) equals the plain version's; a sequence whose every
+    count is 0 leaves the buffer as it was (the barriers alone)."""
+    from repro_torch.device import round_step as rs
+
+    rng = np.random.default_rng(8)
+    n, rows = 32, 6
+    tabs = _rounds_tables(rng, n, rows, 40)
+    moves = rs.compact_moves(tabs, rows).to(gpu)
+    buf = _rounds_buffer(gpu, rng, n, rows, 64)
+    got = rs.permute_rounds(buf.clone(), moves, 5, 23)
+    want = rs.permute_rounds_ref(buf.clone(), moves, 5, 23)
+    assert torch.equal(got, want)
+    idle = tabs.copy()
+    idle[:, 4] = 0
+    got = rs.permute_rounds(buf.clone(), rs.compact_moves(idle, rows).to(gpu))
+    torch.cuda.synchronize()
+    assert torch.equal(got, buf)
+
+
+def test_rounds_kernel_past_2_31_bytes(gpu):
+    """A buffer over 2**31 bytes whose last device's last row lies past
+    byte 2**31: 64-bit row offsets, bit-identical to the plain version."""
+    from repro_torch.device import round_step as rs
+
+    rng = np.random.default_rng(9)
+    n, rows, row_bytes = 16, 8200, 16400
+    assert n * rows * row_bytes > 2 ** 31
+    tabs = _rounds_tables(rng, n, rows, 5)
+    for t in tabs:                       # n - 2's last row -> n - 1's last
+        src, s_ix, s_ok, r_ix, r_ok = t
+        src[src == n - 2] = -1
+        src[n - 1], s_ix[n - 2], s_ok[n - 2] = n - 2, rows - 1, 1
+        r_ix[n - 1], r_ok[n - 1] = rows - 1, 1
+        r_ix[n - 2] = 0 if r_ix[n - 2] == rows - 1 else r_ix[n - 2]
+        s_ix[n - 1] = 0 if s_ix[n - 1] == rows - 1 else s_ix[n - 1]
+    moves = rs.compact_moves(tabs, rows).to(gpu)
+    g = torch.Generator(device=gpu).manual_seed(4)
+    buf = torch.randint(0, 256, (n, rows, row_bytes), dtype=torch.uint8,
+                        device=gpu, generator=g)
+    want = rs.permute_rounds_ref(buf.clone(), moves)
+    rs.permute_rounds(buf, moves)
+    torch.cuda.synchronize()
+    assert torch.equal(buf, want)
+    assert torch.equal(buf[n - 1, rows - 1], want[n - 1, rows - 1])
+
+
+def test_rounds_kernel_rejects_bad_inputs(gpu):
+    from repro_torch.device import round_step as rs
+
+    rng = np.random.default_rng(1)
+    moves = rs.compact_moves(_rounds_tables(rng, 4, 3, 4), 3)
+    buf = torch.zeros((4, 3, 32), dtype=torch.uint8, device=gpu)
+    with pytest.raises(ValueError):          # moves on the CPU
+        rs.permute_rounds(buf, moves)
+    with pytest.raises(ValueError):          # another buffer shape
+        rs.permute_rounds(buf[:, :2].contiguous(), moves.to(gpu))
+    with pytest.raises(ValueError):          # row not a multiple of 16 bytes
+        rs.permute_rounds(torch.zeros((4, 3, 20), dtype=torch.uint8,
+                                      device=gpu), moves.to(gpu))
+    with pytest.raises(ValueError):          # not a range of the moves
+        rs.permute_rounds(buf, moves.to(gpu), 3, 9)
+    blocks, threads = rs.rounds_grid(gpu)
+    assert blocks >= torch.cuda.get_device_properties(gpu) \
+        .multi_processor_count and threads > 0
+
+
+def test_kernels_refuse_grad_on_card(gpu):
+    """K2 and K3 have no backward: an input that requires grad raises while
+    grad is enabled; under ``no_grad`` the same call launches."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ssd_scan as K
+
+    q, k, v = _attn_inputs(gpu, 3, 1, 4, 2, 64, 64, 64, torch.bfloat16)
+    with pytest.raises(RuntimeError, match="backward"):
+        FA.flash_attention(q.requires_grad_(), k, v)
+    args = _ssd_inputs(gpu, 3, 1, 64, 2, 32, 16, torch.bfloat16)
+    with pytest.raises(RuntimeError, match="backward"):
+        K.ssd_scan(args[0], args[1].requires_grad_(), *args[2:])
+    before = (FA.launches, K.launches)
+    with torch.no_grad():
+        FA.flash_attention(q, k, v)
+        K.ssd_scan(*args)
+    assert (FA.launches, K.launches) == (before[0] + 1, before[1] + 1)
 
 
 SSD_SHAPES = [(1, 64, 2, 32, 16, 32), (2, 100, 4, 64, 32, 32),
@@ -254,7 +388,13 @@ ATTN_SHAPES = [(1, 4, 4, 128, 128, 64), (2, 8, 2, 128, 128, 64),
                (1, 4, 2, 300, 300, 32), (1, 4, 2, 300, 300, 16),
                (2, 4, 2, 1, 2048, 128), (2, 4, 2, 16, 2048, 128),
                (2, 4, 2, 300, 200, 128), (2, 4, 2, 300, 100, 128),
-               (2, 4, 2, 300, 100, 64)]
+               (2, 4, 2, 300, 100, 64),
+               # head dim 112 (zamba2-7b): the bf16 kernel's zero-filled
+               # route on the D 128 tile, and the float32 instance; last
+               # zamba2-7b's prefill shape
+               (1, 4, 2, 96, 96, 112), (1, 4, 2, 1000, 1000, 112),
+               (2, 4, 2, 16, 2048, 112), (2, 4, 2, 300, 100, 112),
+               (4, 32, 32, 2048, 2048, 112)]
 
 
 def _attn_inputs(gpu, seed, b, hq, hkv, s, t, d, dtype):
@@ -316,6 +456,25 @@ def test_attention_kernel_reads_model_layout_by_strides_bf16(gpu):
     q, k, v = x.transpose(1, 2), kv[0].transpose(1, 2), kv[1].transpose(1, 2)
     got = K.flash_attention(q, k, v)
     assert got.stride() == q.stride()
+    torch.testing.assert_close(got.float(),
+                               ref.attention_ref(q, k, v).float(),
+                               atol=2e-2, rtol=2e-2)
+
+
+def test_attention_kernel_reads_model_layout_by_strides_d112(gpu):
+    """Head dim 112 in bf16 over (B, H, S, D) views of (B, S, H, D)
+    projections: 224-byte rows, the tensor maps' inner dimension 112; the
+    output's columns are exactly those of the plain version's shape, q's
+    strides."""
+    from repro_torch.kernels import flash_attention as K
+    from repro_torch.kernels import ref
+
+    g = torch.Generator(device=gpu).manual_seed(12)
+    x = torch.randn(2, 300, 8, 112, device=gpu, generator=g).bfloat16()
+    kv = torch.randn(2, 2, 300, 4, 112, device=gpu, generator=g).bfloat16()
+    q, k, v = x.transpose(1, 2), kv[0].transpose(1, 2), kv[1].transpose(1, 2)
+    got = K.flash_attention(q, k, v)
+    assert got.stride() == q.stride() and got.shape[-1] == 112
     torch.testing.assert_close(got.float(),
                                ref.attention_ref(q, k, v).float(),
                                atol=2e-2, rtol=2e-2)
