@@ -33,31 +33,43 @@ Phases, each of which exits non-zero on failure:
    the same launch with every count 0; the wrapper's host time), the bound
    (bytes moved over the card's memory rate), the plain versions and the
    ``index_select``/``index_copy_`` yardstick;
-6. hold K3 against its plain version (``ssd_chunked``) on the card: the
+6. the calibration path through a served, stored model
+   (``api.compile(topo, server=True, store=PlanStore(tmp))``): ring 8 at
+   4 MiB and mesh2d 16 x 16 at 16 MiB from root 255 (root 0's orbit: one
+   plan build serves both roots), each ``executable`` verified bit-exact in
+   one ``permute_rounds`` launch; the ring rounds ``measure_round`` times
+   (``iters`` sub-rounds of the full ring in one launch) bit-exact against
+   ``permute_rounds_ref`` at every size; ``ex.calibrate()`` (ring 8 at the
+   reference bench cell's 8 KiB-1 MiB ladder, mesh2d at the default 1
+   KiB-1 MiB) and ``prediction_report``: alpha >= 0, beta > 0, finite
+   times, the ring 8 artifact stored and reloaded equal; alpha, beta, the
+   fit residual, each size's time, predicted and measured cycle times and
+   ``rel_err`` are printed as readings, not gated;
+7. hold K3 against its plain version (``ssd_chunked``) on the card: the
    Mamba-2 370M prefill shape in bf16, a ragged sequence, float32, the
    overflow regime (dt = 2, A = -1, where a multiplied mask gives NaN),
    chunk invariance in float32 and bf16, short and ragged bf16 chunks (8,
    37, 16), many waves of items (4 x 4096 x 32 heads), two bf16 launches
    bit-identical, and a ValueError for bf16 shapes the kernel does not take;
-7. the serving path of Mamba-2 370M at full width (48 layers, random
+8. the serving path of Mamba-2 370M at full width (48 layers, random
    weights from seed 0): ``LM.prefill`` of 4 x 2048 ``SyntheticTokens`` with
    exactly one K3 launch per layer, finite logits, held against a prefill
    through the plain SSD; teacher-forced ``decode_step`` against
    ``forward`` over 4 x 256 tokens, in bf16 and in float32; and
    ``serve.main`` to (4, 32) greedy tokens;
-8. K3's timing at the prefill shape (an eager loop of 20 launches; a CUDA
+9. K3's timing at the prefill shape (an eager loop of 20 launches; a CUDA
    graph of 20 and the wrapper's host time beside it; its bound, TFLOP/s,
    share of the bound, the plain version, the float32 FMA kernel), prefill
    and decode times, serve's tokens/s and the prefill's peak memory; then
    a ``torch.profiler`` window over one prefill and over four decode steps
    (the device's busy share and kernel time by kind);
-9. hold K2 against its plain version (``attention_ref``) on the card: the
+10. hold K2 against its plain version (``attention_ref``) on the card: the
    llama3.2-3b prefill shape (B 4, Hq 32, Hkv 16, S = T = 2048, D 128) in
    bf16 and float32, ragged S = T = 2000, non-causal, the decode offset
    (S = 1 and S = 16 against T = 2048), S > T with fully-masked rows
    (exactly 0), the odd sizes 37/37 with D 32, and zamba2-7b's head dim
    112 at its prefill shape (4, 32, 32, 2048, 2048) in bf16 and float32;
-10. the serving path of llama3.2-3b at full width (28 layers, random weights
+11. the serving path of llama3.2-3b at full width (28 layers, random weights
    from seed 0), the Mamba-2 models freed first: ``LM.prefill`` of
    4 x 2048 ``SyntheticTokens`` with exactly one K2 launch per layer (and
    none of K1 and K3), finite logits, the peak memory; K2 against plain
@@ -68,7 +80,7 @@ Phases, each of which exits non-zero on failure:
    reference's attention init, where ``attention_blockwise`` is held
    against ``attention_ref`` beside K2 (a reading: why the port's init is
    the fan-in); ``serve.main --arch llama3.2-3b`` to (4, 32) greedy tokens;
-11. K2's timing at the prefill shape (an eager loop of five launches, the
+12. K2's timing at the prefill shape (an eager loop of five launches, the
    wrapper's host work included; a CUDA graph of five beside it, and the
    wrapper's host time per call): its bound (operations), TFLOP/s, share
    of the bound, the plain version and ``scaled_dot_product_attention`` as
@@ -78,8 +90,9 @@ Phases, each of which exits non-zero on failure:
    after a 4 x 2048 prefill, serve's tokens/s; a ``torch.profiler`` window
    over one dense prefill and the four decode steps after it.
 
-The last lines are the card (``nvidia-smi`` name and power limit), one JSON
-line with every kernel, and ``{"ok": true, "device": {...}}``. Without a
+The last lines are one JSON line with the calibration readings, the card
+(``nvidia-smi`` name and power limit), one JSON line with every kernel, and
+``{"ok": true, "device": {...}}``. Without a
 GPU, or without the repo beside it, it exits non-zero and prints no result.
 """
 
@@ -106,6 +119,13 @@ SSD_MAIN = (4, 2048, 32, 64, 128, 128)
 ATTN_MAIN = (4, 32, 16, 2048, 2048, 128)
 # zamba2-7b's shared attention at a 4 x 2048 prefill (32 heads of 112)
 ZAMBA_ATTN = (4, 32, 32, 2048, 2048, 112)
+# the calibration cells: ring 8 at 4 MiB with the reference bench cell's
+# ladder, iters and reps (benchmarks/simbench.py, device_collective); mesh2d
+# 16 x 16 at 16 MiB from root 255 (root 0's orbit) at the default ladder
+CAL_RING_NBYTES = 4 << 20
+CAL_RING_SIZES = (8 << 10, 64 << 10, 256 << 10, 1 << 20)
+CAL_SIZES = (1 << 10, 8 << 10, 64 << 10, 256 << 10, 1 << 20)
+CAL_ITERS, CAL_REPS = 32, 5
 BF16_TOL, F32_TOL, CHUNK_TOL = 2e-2, 3e-5, 1e-4   # tests/test_kernels.py
 F32_MODEL_TOL = 1e-3      # float32 logits at full depth
 
@@ -542,6 +562,146 @@ def phase_timing(np, torch, rs, runner, ex, x, lay, rate, secs):
                 step_library_ms=library_ms / nl,
                 step_bound_ms=bound_ms / nl, subrounds=nl,
                 conflict_free_runs=runs)
+
+
+def calibration_cell(torch, rs, C, model, root, nbytes, sizes, what):
+    """One calibration cell on the card: ``model.executable(root, nbytes)``
+    verified bit-exact in exactly one ``permute_rounds`` launch; the ring
+    ladder at every size bit-exact against ``permute_rounds_ref``; then
+    ``ex.calibrate`` and ``prediction_report``, with the counts gated.
+    Returns (executable, cost, readings)."""
+    ex = model.executable(root=root, nbytes=nbytes)
+    if ex.torch_device.type != "cuda":
+        fail(f"calibration cell {what} is not on cuda")
+    x = ex.default_payload(seed=root)
+    ex.moves()
+    rs.launches = rs.rounds_launches = rs.subrounds = 0
+    chk = ex.verify(x)
+    torch.cuda.synchronize()
+    if not chk.ok:
+        fail(f"calibration cell {what}: devices {chk.missing[:16]} differ "
+             f"from the payload")
+    if (rs.rounds_launches, rs.subrounds, rs.launches) != \
+            (1, ex.num_subrounds, 0):
+        fail(f"calibration cell {what}: verify launched permute_rounds "
+             f"{rs.rounds_launches} times for {rs.subrounds} sub-rounds and "
+             f"permute_step {rs.launches} times, expected 1 for "
+             f"{ex.num_subrounds} and none")
+    n = ex.schedule.num_devices
+    worst = 0
+    for size in sizes:
+        buf, moves = C.ring_round(n, size, "cuda", CAL_ITERS)
+        want = rs.permute_rounds_ref(buf.clone(), moves, 0, CAL_ITERS)
+        rs.permute_rounds(buf, moves, 0, CAL_ITERS)
+        torch.cuda.synchronize()
+        worst = max(worst, max_byte_diff(torch, buf, want))
+        if not torch.equal(buf, want) or not C.ring_delivered(buf):
+            fail(f"calibration cell {what}: the ring rounds at {size} B "
+                 f"differ from permute_rounds_ref")
+        del buf, want
+    rs.launches = rs.rounds_launches = rs.subrounds = 0
+    cost = ex.calibrate(sizes=sizes, iters=CAL_ITERS, reps=CAL_REPS)
+    want = len(sizes) * (CAL_REPS + 1)
+    if (rs.rounds_launches, rs.subrounds, rs.launches) != \
+            (want, want * CAL_ITERS, 0):
+        fail(f"calibration cell {what}: calibrate launched permute_rounds "
+             f"{rs.rounds_launches} times for {rs.subrounds} sub-rounds, "
+             f"expected {want} for {want * CAL_ITERS}")
+    (cls, (alpha, beta)), = cost.classes.items()
+    times = cost.meta["round_seconds"]
+    if not (0 <= alpha < float("inf") and all(
+            0 < t < float("inf") for t in times + [beta])):
+        fail(f"calibration cell {what}: alpha {alpha}, beta {beta}, round "
+             f"times {times}")
+    row, = C.prediction_report([ex], cost, reps=CAL_REPS)
+    if not 0 < row.measured_cycle_s < float("inf") or \
+            not 0 < row.predicted_cycle_s < float("inf"):
+        fail(f"calibration cell {what}: report {row}")
+    s = ex.schedule
+    rows = [n * 2 * r for r in cost.meta["row_bytes"]]
+    log(f"[calibrate] {what}: {ex.candidate}, K={s.K}, m={ex.num_groups}, "
+        f"d={s.d}, cycles={row.num_cycles}, {ex.num_subrounds} sub-rounds "
+        f"verified on {n} devices in 1 permute_rounds launch; ring ladder "
+        f"bit-exact at {len(sizes)} sizes")
+    for size, rb, buf_b, t in zip(sizes, cost.meta["row_bytes"], rows,
+                                  times):
+        log(f"[calibrate]   {what} {size} B a link (row {rb} B, buffer "
+            f"{buf_b} B): {t * 1e6!r} us a round")
+    log(f"[calibrate] {what}: class {cls}, alpha {alpha * 1e6!r} us, beta "
+        f"{beta / 1e9!r} GB/s, fit residual "
+        f"{cost.meta['fit_residual_seconds'] * 1e6!r} us; cycle predicted "
+        f"{row.predicted_cycle_s * 1e6!r} us, measured "
+        f"{row.measured_cycle_s * 1e6!r} us, rel_err {row.rel_err!r}")
+    return ex, cost, dict(
+        topo=ex.topo.name, root=root, nbytes=nbytes, candidate=ex.candidate,
+        devices=n, cycles=row.num_cycles, subrounds=ex.num_subrounds,
+        link_class=cls, alpha_s=alpha, beta_bytes_per_s=beta,
+        fit_residual_s=cost.meta["fit_residual_seconds"],
+        sizes=list(sizes), row_bytes=cost.meta["row_bytes"],
+        buffer_bytes=rows, round_s=times,
+        predicted_cycle_s=row.predicted_cycle_s,
+        measured_cycle_s=row.measured_cycle_s, rel_err=row.rel_err,
+        ladder_max_abs_err=worst)
+
+
+def phase_calibrate(torch, rs, api, T):
+    """The calibration path (``repro_torch.device.calibrate``) through a
+    served, stored model: ring 8 at 4 MiB and mesh2d 16 x 16 at 16 MiB
+    from root 255, each in ``calibration_cell``; the ring 8 artifact stored
+    and reloaded equal; one plan build for mesh2d's roots 0 and 255."""
+    import importlib
+    import tempfile
+    from repro_torch.core.planstore import CalibrationKey, PlanStore
+    C = importlib.import_module("repro_torch.device.calibrate")
+
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        store = PlanStore(tmp)
+        topo = T.ring(8)
+        model = api.compile(topo, server=True, store=store)
+        ex, cost, out["ring8"] = calibration_cell(
+            torch, rs, C, model, 0, CAL_RING_NBYTES, CAL_RING_SIZES,
+            "ring8 4 MiB")
+        key = CalibrationKey.for_topology(topo, "cuda", 8)
+        path = store.store_calibration(key, cost)
+        back, _ = PlanStore(tmp).load_calibration(key)
+        if back != cost:
+            fail(f"the calibration artifact {path} came back changed")
+        log(f"[calibrate] ring8 artifact stored and reloaded equal "
+            f"({os.path.basename(path)})")
+        # a reading: the launch's fixed cost inside a round of the ladder,
+        # from the smallest size's round over 1,024 sub-rounds a launch
+        long_s = C.measure_round(8, CAL_RING_SIZES[0], iters=1024,
+                                 reps=CAL_REPS)
+        out["ring8"]["round_s_at_1024_iters"] = long_s
+        log(f"[calibrate] ring8 {CAL_RING_SIZES[0]} B a link: "
+            f"{long_s * 1e6!r} us a round over 1024 sub-rounds a launch "
+            f"(against {out['ring8']['round_s'][0] * 1e6!r} us over "
+            f"{CAL_ITERS})")
+        del ex
+
+        mesh = api.compile(T.mesh2d(16, 16), server=True, store=store)
+        ex0 = mesh.executable(root=0, nbytes=MAIN_NBYTES)
+        ex, _, out["mesh2d"] = calibration_cell(
+            torch, rs, C, mesh, 255, MAIN_NBYTES, CAL_SIZES,
+            "mesh2d 16x16 16 MiB root 255")
+        st = mesh.server.stats
+        if st.builds != 1 or st.relabels < 1 or \
+                ex.num_subrounds != ex0.num_subrounds:
+            fail(f"mesh2d roots 0 and 255: {st.builds} plan builds and "
+                 f"{st.relabels} relabels (expected 1 build), "
+                 f"{ex.num_subrounds} against {ex0.num_subrounds} "
+                 f"sub-rounds")
+        log(f"[calibrate] mesh2d roots 0 and 255: {st.builds} plan build "
+            f"({st.build_seconds:.3f} s), {st.relabels} relabel "
+            f"({st.relabel_seconds:.3f} s)")
+        out["mesh2d"].update(builds=st.builds, relabels=st.relabels)
+        del ex, ex0
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"[calibrate] phase time {out['phase_s']:.3f} s")
+    return out
 
 
 def ssd_inputs(torch, b, s, h, dh, ds, dtype, seed, dt_value=None, a=None):
@@ -1255,6 +1415,7 @@ def main():
     from repro_torch.launch import serve
     from repro_torch.models.model import LM
 
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     name = card()
@@ -1286,6 +1447,18 @@ def main():
         f"permute_rounds {regs['permute_rounds']}")
     del ex, x
     torch.cuda.empty_cache()
+    K.launches = FA.launches = 0
+    cal = phase_calibrate(torch, rs, api, T)
+    if K.launches or FA.launches:
+        fail(f"the calibration path launched ssd_scan {K.launches} and "
+             f"flash_attention {FA.launches} times")
+    log(f"[summary] {name}: calibration alpha / beta / rel_err: ring8 "
+        f"{cal['ring8']['alpha_s'] * 1e6!r} us / "
+        f"{cal['ring8']['beta_bytes_per_s'] / 1e9!r} GB/s / "
+        f"{cal['ring8']['rel_err']!r}; mesh2d root 255 "
+        f"{cal['mesh2d']['alpha_s'] * 1e6!r} us / "
+        f"{cal['mesh2d']['beta_bytes_per_s'] / 1e9!r} GB/s / "
+        f"{cal['mesh2d']['rel_err']!r}")
 
     ssd_err = phase_ssd_vs_plain(torch, K, ref)
     cfg = get_config("mamba2-370m")
@@ -1377,6 +1550,9 @@ def main():
         "host_ms": st["host_ms"], "tflops": st["tflops"],
         "share_of_bound": st["share_of_bound"], "f32_ms": st["f32_ms"],
     }]
+    log(f"[summary] the whole run took {time.perf_counter() - t_start:.1f} s "
+        f"after the imports")
+    print(json.dumps({"calibration": cal}), flush=True)
     print(name, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

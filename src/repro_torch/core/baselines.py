@@ -348,7 +348,7 @@ def lower_baseline(topo: Topology, cm: ConflictModel, name: str, root: int,
     First call generates the ``SendTask`` list and lowers it
     (``repro.core.routing.CompiledTaskList``); repeats hit the in-process
     memo on ``cm.compiled()``. With ``store`` (a
-    ``repro.core.planstore.PlanStore``) the structural lowering also
+    ``repro_torch.core.planstore.PlanStore``) the structural lowering also
     round-trips through a content-addressed on-disk artifact keyed by
     (topology fingerprint, mode, algorithm, root, nbytes), so other
     processes skip both generation and lowering (dense resource ids rebind
@@ -385,11 +385,10 @@ def simulate_baseline(topo: Topology, cm: ConflictModel, name: str, root: int,
     lowered task list through ``CompiledSim.run_lowered`` — the lowering is
     memoized per (algorithm, root, nbytes) on the compiled model (and
     optionally persisted via ``store``), so repeated calls pay only the
-    event loop; ``"kernel"`` runs the same lowered list through the
-    jax-jitted round core (``repro.core.kernelsim``, numpy fallback when
-    jax is unavailable); ``"reference"`` runs the ``EventSimulator`` oracle
-    on a freshly generated task list. All produce bit-identical results
-    (asserted in tests/test_engine_equiv.py and tests/test_kernel.py).
+    event loop; ``"kernel"`` (the jitted round core) is not ported yet and
+    raises; ``"reference"`` runs the ``EventSimulator`` oracle
+    on a freshly generated task list. The two produce bit-identical
+    results (asserted for the reference in tests/test_engine_equiv.py).
 
     ``max_sim_segments`` (fast engine only) enables the segment-analytic
     path of ``CompiledSim.run_task_list`` for fold-eligible lists: exact

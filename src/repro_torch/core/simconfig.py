@@ -84,9 +84,9 @@ class SimConfig:
     """Simulation options shared by every ``simulate_*`` entrypoint.
 
     ``engine`` selects the execution engine: ``"fast"`` — the flat-array
-    engine, the default everywhere; ``"kernel"`` — the jax-jitted round
-    core over the lowered arrays (``repro.core.kernelsim``; falls back to
-    the numpy path for faults, pipelines and jax-less environments);
+    engine, the default everywhere; ``"kernel"`` — the jitted round core
+    over the lowered arrays, not ported yet (``make_engine`` raises; the
+    reference's is ``repro.core.kernelsim``);
     ``"reference"`` — the oracle.
     ``faults`` is an optional ``repro.core.faults.FaultSchedule``; a
     non-empty schedule routes the run through the engine's fault loop.

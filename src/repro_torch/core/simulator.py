@@ -134,10 +134,9 @@ _WAITING, _READY, _BLOCKED, _RUNNING, _DONE = range(5)
 
 def make_engine(topo: Topology, cm: ConflictModel, root: int,
                 engine: str = DEFAULT_ENGINE):
-    """Simulator factory: the reference oracle, the flat-array engine, or
-    the jit-kernelized engine (``"kernel"`` — jax round core over the
-    lowered arrays, numpy fallback when jax is unavailable; see
-    ``repro.core.kernelsim``)."""
+    """Simulator factory: the reference oracle or the flat-array engine.
+    The jit-kernelized engine (``"kernel"``, the reference's
+    ``repro.core.kernelsim``) is not ported yet and raises."""
     if engine == "reference":
         return EventSimulator(topo, cm, root)
     if engine == "fast":
@@ -145,9 +144,9 @@ def make_engine(topo: Topology, cm: ConflictModel, root: int,
         return CompiledSim(topo, cm, root)
     if engine == "kernel":
         raise NotImplementedError(
-            "engine='kernel' (the jitted event core) is not ported yet; it is "
-            "ROADMAP.md queue 1, item 6 (repro_torch/core/kernelsim.py). Use "
-            "engine='fast' or 'reference'.")
+            "engine='kernel' (the jitted event core) is not ported yet; see "
+            "the jitted event core (repro_torch/core/kernelsim.py) in "
+            "ROADMAP.md queue 1. Use engine='fast' or 'reference'.")
     raise ValueError(f"unknown engine {engine!r}")
 
 

@@ -5,10 +5,16 @@ into an :class:`ExecutablePlan`: static per-sub-round tables
 (``schedule``), the cycle loop (``runner``) and its round step
 (``round_step``): on a GPU one launch of a hand-written persistent CUDA
 kernel for every sub-round of a broadcast (``permute_rounds``), beside the
-one-sub-round kernel ``permute_step``. ``carry`` imports schedules the JAX
-package compiled.
+one-sub-round kernel ``permute_step``. ``calibrate`` fits Hockney
+constants from timed ring rounds of that kernel and reports the
+simulator's prediction against the measured broadcast. ``carry`` imports
+schedules the JAX package compiled.
 """
 
+from repro_torch.device.calibrate import (CalibratedCost, PredictionRow,
+                                          apply_calibration, calibrate,
+                                          measure_round, predict_cycle_time,
+                                          prediction_report)
 from repro_torch.device.carry import import_schedule
 from repro_torch.device.executable import (DeviceDelivery, ExecutablePlan,
                                            build_executable)
@@ -22,6 +28,8 @@ from repro_torch.device.schedule import (DeviceSchedule, NotDeviceExecutable,
                                          make_device_schedule)
 
 __all__ = [
+    "CalibratedCost", "PredictionRow", "apply_calibration", "calibrate",
+    "measure_round", "predict_cycle_time", "prediction_report",
     "import_schedule", "DeviceDelivery", "ExecutablePlan", "build_executable",
     "Moves", "compact_moves", "permute_rounds", "permute_rounds_ref",
     "permute_step", "permute_step_ref", "bbs_broadcast", "binomial_broadcast",

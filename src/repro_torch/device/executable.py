@@ -11,6 +11,7 @@ times the broadcast on n virtual devices of one card::
     out = ex.run(x)          # (n,) + x.shape, one copy per virtual device
     chk = ex.verify(x)       # bit-exact delivery on every device
     t = ex.measure()         # seconds per broadcast
+    cost = ex.calibrate()    # Hockney alpha/beta of the virtual mesh
 
 The device comes from ``SimConfig.device`` (``DeviceConfig(device=...)``):
 ``"cuda"`` by default, which raises on a host without a GPU; ``"cpu"`` runs
@@ -172,6 +173,13 @@ class ExecutablePlan:
             if i:                                   # run 0 is the warm-up
                 best = min(best, t)
         return best
+
+    def calibrate(self, **kw):
+        """Fit Hockney alpha/beta from ring rounds on this plan's n virtual
+        devices and device -- see ``repro_torch.device.calibrate``."""
+        from repro_torch.device.calibrate import calibrate
+        return calibrate(self.topo, self.schedule.num_devices,
+                         device=self.device.device, **kw)
 
 
 def build_executable(topo: Topology, cm: ConflictModel, root: int,

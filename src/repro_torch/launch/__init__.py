@@ -1,1 +1,2 @@
-"""Entry points of the port: batched serving (`serve`)."""
+"""Entry points of the port: batched serving (`serve`) and the warm
+broadcast-plan service (`planserver`)."""

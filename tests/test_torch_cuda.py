@@ -1,7 +1,7 @@
 """Port tests that need an NVIDIA GPU (marker ``cuda``): the hand-written
 kernels (the round step K1 -- one sub-round a launch, and every sub-round
-of a broadcast in one persistent launch --, flash attention K2, the SSD
-scan K3) against
+of a broadcast in one persistent launch, also as the calibration's ring
+rounds --, flash attention K2, the SSD scan K3) against
 their plain PyTorch versions, small broadcasts on the card against the same
 broadcasts on the CPU, and the Mamba-2 and dense LMs on the card against
 the CPU. They skip on a host
@@ -221,6 +221,58 @@ def test_rounds_kernel_rejects_bad_inputs(gpu):
     blocks, threads = rs.rounds_grid(gpu)
     assert blocks >= torch.cuda.get_device_properties(gpu) \
         .multi_processor_count and threads > 0
+
+
+@pytest.mark.parametrize("n,nbytes", [(8, 8 << 10), (8, 1 << 20),
+                                      (256, 1 << 10), (256, 1 << 20)])
+def test_ring_ladder_matches_plain(gpu, n, nbytes):
+    """The calibration's ring rounds (``calibrate.ring_round``): 32
+    sub-rounds in one ``permute_rounds`` launch, bit-identical to the plain
+    version, each device's row 1 its predecessor's row 0; ``measure_round``
+    times them in positive, finite seconds."""
+    import importlib
+
+    from repro_torch.device import round_step as rs
+    C = importlib.import_module("repro_torch.device.calibrate")
+
+    buf, moves = C.ring_round(n, nbytes, gpu, iters=32)
+    want = rs.permute_rounds_ref(buf.clone(), moves, 0, 32)
+    before = (rs.rounds_launches, rs.subrounds)
+    rs.permute_rounds(buf, moves, 0, 32)
+    torch.cuda.synchronize()
+    assert (rs.rounds_launches, rs.subrounds) == (before[0] + 1,
+                                                  before[1] + 32)
+    assert torch.equal(buf, want) and C.ring_delivered(buf)
+    t = C.measure_round(n, nbytes, device=gpu, iters=8, reps=2)
+    assert np.isfinite(t) and t > 0
+
+
+def test_executable_calibrate_on_card(gpu, tmp_path):
+    """``ex.calibrate()`` on ring 8 through a served, stored model: the fit
+    is finite with alpha >= 0 and beta > 0, the meta names the card, the
+    report's times are finite, and the artifact reloads equal."""
+    from repro_torch import api
+    from repro_torch.core import topology as T
+    from repro_torch.core.planstore import CalibrationKey, PlanStore
+    from repro_torch.device import prediction_report
+
+    store = PlanStore(str(tmp_path))
+    model = api.compile(T.ring(8), server=True, store=store)
+    ex = model.executable(root=0, nbytes=1 << 20)
+    assert ex.verify(ex.default_payload()).ok
+    cost = ex.calibrate(sizes=(8 << 10, 64 << 10, 256 << 10), iters=8,
+                        reps=2)
+    (a, b), = cost.classes.values()
+    assert a >= 0 and b > 0 and np.isfinite([a, b]).all()
+    assert cost.meta["backend"] == "cuda" and cost.meta["num_devices"] == 8
+    assert cost.meta["device_name"] == torch.cuda.get_device_name(gpu)
+    row, = prediction_report([ex], cost, reps=2)
+    assert np.isfinite([row.predicted_cycle_s, row.measured_cycle_s,
+                        row.rel_err]).all() and row.measured_cycle_s > 0
+    key = CalibrationKey.for_topology(model.topo, "cuda", 8)
+    store.store_calibration(key, cost)
+    back, _ = store.load_calibration(key)
+    assert back == cost
 
 
 def test_kernels_refuse_grad_on_card(gpu):

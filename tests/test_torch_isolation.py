@@ -149,14 +149,20 @@ def test_kernel_engine_is_not_ported_yet():
         make_engine(topo, ConflictModel(topo), 0, engine="kernel")
 
 
-def test_plan_server_and_store_are_not_ported_yet():
+def test_plan_server_and_store_serve_plans(tmp_path):
+    """``compile(server=True)`` and ``compile(store=PlanStore(dir))`` attach
+    a ``PlanServer`` that serves ``plan(root)``; the store keeps the
+    canonical build on disk."""
     from repro_torch import api
     from repro_torch.core import topology as T
+    from repro_torch.core.planstore import PlanStore
 
-    with pytest.raises(NotImplementedError):
-        api.compile(T.ring(8), server=True)
-    with pytest.raises(NotImplementedError):
-        api.compile(T.ring(8), store=object())
+    for kw in (dict(server=True), dict(store=PlanStore(str(tmp_path)))):
+        model = api.compile(T.ring(8), **kw)
+        assert model.plan(3).root == 3 and model.plan(0).root == 0
+        assert model.server.stats.builds == 1
+        assert model.server.stats.requests == 2
+    assert any(f.endswith(".pkl") for f in os.listdir(tmp_path))
 
 
 def test_schedule_rejects_send_recv_on_one_row():
