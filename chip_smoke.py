@@ -45,31 +45,47 @@ Phases, each of which exits non-zero on failure:
    times, the ring 8 artifact stored and reloaded equal; alpha, beta, the
    fit residual, each size's time, predicted and measured cycle times and
    ``rel_err`` are printed as readings, not gated;
-7. hold K3 against its plain version (``ssd_chunked``) on the card: the
+7. the simulator's event core (``csrc/event_core.cu``): ``tests/test_kernel.py``'s
+   matrix (4 topologies x 7 baselines x 4e4 and 64e6 B) through
+   ``KernelSim.run_lowered(jit=True)`` and ``simulate_baseline(
+   config=SimConfig(engine="kernel"))`` on cuda, every result equal to the
+   numpy engine's, one launch per flat list and none for a foldable one;
+   one grid-sweep row, mesh2d 32 x 32 srda at 12 sizes (11,263 tasks a
+   lane), in one ``run_lowered_batch`` launch against 12 per-size numpy
+   runs; mesh2d 64 x 64 glf and bine at 64e6 (the sweep's widest resource
+   rows); then the kernel bit-exact against ``event_core_ref`` on the card
+   (mesh2d 16 x 16 srda, 12 lanes) and each shape's kernel time (CUDA
+   events, min of 3), time a step, the numpy engine's time on the same
+   lists and the bytes bound;
+8. the distributed executor (``repro_torch.device.distributed``) over
+   ``min(8, device_count)`` NCCL ranks, one GPU each, bit for bit against
+   the virtual mesh, when the machine has two GPUs or more; on one GPU a
+   line says it was not run and why;
+9. hold K3 against its plain version (``ssd_chunked``) on the card: the
    Mamba-2 370M prefill shape in bf16, a ragged sequence, float32, the
    overflow regime (dt = 2, A = -1, where a multiplied mask gives NaN),
    chunk invariance in float32 and bf16, short and ragged bf16 chunks (8,
    37, 16), many waves of items (4 x 4096 x 32 heads), two bf16 launches
    bit-identical, and a ValueError for bf16 shapes the kernel does not take;
-8. the serving path of Mamba-2 370M at full width (48 layers, random
+10. the serving path of Mamba-2 370M at full width (48 layers, random
    weights from seed 0): ``LM.prefill`` of 4 x 2048 ``SyntheticTokens`` with
    exactly one K3 launch per layer, finite logits, held against a prefill
    through the plain SSD; teacher-forced ``decode_step`` against
    ``forward`` over 4 x 256 tokens, in bf16 and in float32; and
    ``serve.main`` to (4, 32) greedy tokens;
-9. K3's timing at the prefill shape (an eager loop of 20 launches; a CUDA
+11. K3's timing at the prefill shape (an eager loop of 20 launches; a CUDA
    graph of 20 and the wrapper's host time beside it; its bound, TFLOP/s,
    share of the bound, the plain version, the float32 FMA kernel), prefill
    and decode times, serve's tokens/s and the prefill's peak memory; then
    a ``torch.profiler`` window over one prefill and over four decode steps
    (the device's busy share and kernel time by kind);
-10. hold K2 against its plain version (``attention_ref``) on the card: the
+12. hold K2 against its plain version (``attention_ref``) on the card: the
    llama3.2-3b prefill shape (B 4, Hq 32, Hkv 16, S = T = 2048, D 128) in
    bf16 and float32, ragged S = T = 2000, non-causal, the decode offset
    (S = 1 and S = 16 against T = 2048), S > T with fully-masked rows
    (exactly 0), the odd sizes 37/37 with D 32, and zamba2-7b's head dim
    112 at its prefill shape (4, 32, 32, 2048, 2048) in bf16 and float32;
-11. the serving path of llama3.2-3b at full width (28 layers, random weights
+13. the serving path of llama3.2-3b at full width (28 layers, random weights
    from seed 0), the Mamba-2 models freed first: ``LM.prefill`` of
    4 x 2048 ``SyntheticTokens`` with exactly one K2 launch per layer (and
    none of K1 and K3), finite logits, the peak memory; K2 against plain
@@ -80,7 +96,7 @@ Phases, each of which exits non-zero on failure:
    reference's attention init, where ``attention_blockwise`` is held
    against ``attention_ref`` beside K2 (a reading: why the port's init is
    the fan-in); ``serve.main --arch llama3.2-3b`` to (4, 32) greedy tokens;
-12. K2's timing at the prefill shape (an eager loop of five launches, the
+14. K2's timing at the prefill shape (an eager loop of five launches, the
    wrapper's host work included; a CUDA graph of five beside it, and the
    wrapper's host time per call): its bound (operations), TFLOP/s, share
    of the bound, the plain version and ``scaled_dot_product_attention`` as
@@ -90,7 +106,8 @@ Phases, each of which exits non-zero on failure:
    after a 4 x 2048 prefill, serve's tokens/s; a ``torch.profiler`` window
    over one dense prefill and the four decode steps after it.
 
-The last lines are one JSON line with the calibration readings, the card
+The last lines are one JSON line with the calibration readings, one with
+the distributed phase's (null on one GPU), the card
 (``nvidia-smi`` name and power limit), one JSON line with every kernel, and
 ``{"ok": true, "device": {...}}``. Without a
 GPU, or without the repo beside it, it exits non-zero and prints no result.
@@ -206,12 +223,13 @@ def ptxas_kernels(report, pattern):
 def phase_build(FA, K):
     from repro_torch import nvcc
     t0 = time.perf_counter()
-    names = ["permute_rounds", "permute_step", "flash_attention", "ssd_scan"]
+    names = ["permute_rounds", "permute_step", "flash_attention", "ssd_scan",
+             "event_core"]
     nvcc.build(names)
     log(f"[build] {', '.join(names)} built in "
         f"{time.perf_counter() - t0:.3f} s")
     k1 = {}
-    for src in ("permute_rounds", "permute_step"):
+    for src in ("permute_rounds", "permute_step", "event_core"):
         for line in nvcc.build_log(src).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build]   {src}: {line.strip()}")
@@ -702,6 +720,294 @@ def phase_calibrate(torch, rs, api, T):
     out["phase_s"] = time.perf_counter() - t0
     log(f"[calibrate] phase time {out['phase_s']:.3f} s")
     return out
+
+
+# the event core's lists: tests/test_kernel.py's matrix, one grid-sweep row
+# in lanes (benchmarks/gridsweep.py's 12 sizes) and the sweep's widest
+# resource rows
+EC_TOPOS = (("mesh2d-4x6", "mesh2d", (4, 6), "full_duplex"),
+            ("mesh2d-16x16", "mesh2d", (16, 16), "full_duplex"),
+            ("dragonfly", "dragonfly", (4, 4, 2), "all_port"),
+            ("fat_tree", "fat_tree", (4,), "full_duplex"))
+EC_NAMES = ("binomial", "flat", "pipeline", "srda", "glf", "bine",
+            "mpi_bcast")
+EC_MATRIX_SIZES = (4e4, 64e6)
+EC_SWEEP_LANES = 12       # np.geomspace(1e5, 1e9, 12)
+DIST_NBYTES = 16 << 20
+
+
+def same_result(a, b):
+    return (a.finish_time == b.finish_time and a.deliveries == b.deliveries
+            and a.node_finish == b.node_finish
+            and a.group_finish == b.group_finish
+            and a.started == b.started and a.completed == b.completed)
+
+
+def event_core_bytes(stat, lanes):
+    """Bytes the event core must move for ``lanes`` lanes of one structure:
+    rank, res, caps and deps read once, each lane's durations read once and
+    its completion times and sequence numbers written once."""
+    n = stat[0].numel()
+    return sum(t.numel() * t.element_size() for t in stat) + lanes * n * 20
+
+
+def phase_eventcore(np, torch, rate):
+    """The simulator's event core on the card (``repro_torch.core.kernelsim``,
+    ``csrc/event_core.cu``). Main path: ``tests/test_kernel.py``'s matrix
+    through ``KernelSim.run_lowered(jit=True)`` and
+    ``simulate_baseline(config=SimConfig(engine="kernel"))``, each equal to
+    the numpy engine's result (every field), one launch per non-foldable
+    list and none for a foldable one; one grid-sweep row (mesh2d 32 x 32
+    srda at 12 sizes) in one ``run_lowered_batch`` launch against 12
+    per-size numpy runs; the sweep's widest resource rows (mesh2d 64 x 64
+    glf and bine at 64e6). Then, outside the main path's count: the kernel
+    against ``event_core_ref`` on the card (mesh2d 16 x 16 srda, 12 lanes),
+    and each shape's kernel time (CUDA events, min of 3), time a step, the
+    numpy engine's time on the same lists (host clock) and the bytes bound,
+    which is not what limits a chain of 2n dependent steps."""
+    from repro_torch.core import kernelsim as KS
+    from repro_torch.core import topology as T
+    from repro_torch.core.baselines import lower_baseline, simulate_baseline
+    from repro_torch.core.fastsim import CompiledSim
+    from repro_torch.core.intersection import ConflictModel
+    from repro_torch.core.simconfig import SimConfig
+
+    t0 = time.perf_counter()
+    sizes = np.geomspace(1e5, 1e9, EC_SWEEP_LANES).tolist()
+    kcfg, fcfg = SimConfig(engine="kernel"), SimConfig(engine="fast")
+    models = {}
+
+    def model(kind, args, mode="full_duplex"):
+        key = (kind, args, mode)
+        if key not in models:
+            topo = getattr(T, kind)(*args)
+            models[key] = (topo, ConflictModel(topo, mode))
+        return models[key]
+
+    KS.launches = 0
+    cases = core_lists = 0
+    for tname, kind, args, mode in EC_TOPOS:
+        topo, cm = model(kind, args, mode)
+        ks, nsim = KS.KernelSim(topo, cm, 0), CompiledSim(topo, cm, 0)
+        for name in EC_NAMES:
+            for size in EC_MATRIX_SIZES:
+                ctl = lower_baseline(topo, cm, name, 0, size)
+                fold = ctl.seg is not None and ctl.seg.foldable
+                before = KS.launches
+                got = ks.run_lowered(ctl, jit=True)
+                api_k = simulate_baseline(topo, cm, name, 0, size,
+                                          config=kcfg)
+                moved = KS.launches - before
+                if not same_result(got, nsim.run_lowered(ctl)) or \
+                        not same_result(api_k, simulate_baseline(
+                            topo, cm, name, 0, size, config=fcfg)):
+                    fail(f"[eventcore] {tname} {name} {size:g}: the kernel "
+                         f"engine differs from the numpy engine")
+                if moved != (0 if fold else 2):
+                    fail(f"[eventcore] {tname} {name} {size:g}: "
+                         f"{moved} event_core launches for a "
+                         f"{'foldable' if fold else 'flat'} list of "
+                         f"{ctl.n} tasks (expected {0 if fold else 2})")
+                cases += 1
+                core_lists += not fold
+    log(f"[eventcore] tests/test_kernel.py matrix: {cases} lists equal to "
+        f"the numpy engine through run_lowered(jit=True) and "
+        f"simulate_baseline(engine='kernel'); {core_lists} flat lists took "
+        f"the kernel ({KS.launches} launches), {cases - core_lists} "
+        f"foldable lists none")
+
+    shapes = {}
+    topo, cm = model("mesh2d", (32, 32))
+    ctl, durs, nbytes = KS.lower_baseline_lanes(topo, cm, "srda", 0, sizes)
+    before = KS.launches
+    got = KS.KernelSim(topo, cm, 0).run_lowered_batch(ctl, durs, nbytes)
+    if KS.launches != before + 1:
+        fail(f"[eventcore] the sweep row took {KS.launches - before} "
+             f"launches, expected 1")
+    shapes["sweep"] = (topo, cm, ctl, durs, [
+        lower_baseline(topo, cm, "srda", 0, s) for s in sizes])
+    nsim = CompiledSim(topo, cm, 0)
+    for lane, (g, c) in enumerate(zip(got, shapes["sweep"][4])):
+        if not same_result(g, nsim.run_lowered(c)):
+            fail(f"[eventcore] sweep lane {lane} ({sizes[lane]:g} B) "
+                 f"differs from the numpy engine")
+    log(f"[eventcore] mesh2d 32x32 srda, {EC_SWEEP_LANES} lanes of "
+        f"{ctl.n} tasks in one launch: every lane equal to its per-size "
+        f"numpy run")
+    topo, cm = model("mesh2d", (64, 64))
+    ks, nsim = KS.KernelSim(topo, cm, 0), CompiledSim(topo, cm, 0)
+    for name in ("glf", "bine"):
+        c = lower_baseline(topo, cm, name, 0, 64e6)
+        before = KS.launches
+        g = ks.run_lowered(c)
+        if KS.launches != before + 1 or not same_result(
+                g, nsim.run_lowered(c)):
+            fail(f"[eventcore] mesh2d 64x64 {name}: {KS.launches - before} "
+                 f"launches, or the result differs from the numpy engine")
+        shapes[name] = (topo, cm, c, np.asarray([c.durs]), [c])
+        log(f"[eventcore] mesh2d 64x64 {name} at 64e6: {c.n} tasks, "
+            f"resource rows {max(len(r) for r in c.res_ids)} wide, equal "
+            f"to the numpy engine")
+    launches = KS.launches
+
+    # the kernel against the plain version on the card
+    topo, cm = model("mesh2d", (16, 16))
+    c16, d16, _ = KS.lower_baseline_lanes(topo, cm, "srda", 0, sizes)
+    shapes["plain"] = (topo, cm, c16, d16, [
+        lower_baseline(topo, cm, "srda", 0, s) for s in sizes])
+    out = {}
+    for key, (topo, cm, c, d, ctls) in shapes.items():
+        c.bind(cm.compiled())
+        stat = [torch.from_numpy(a).cuda() for a in
+                KS._static_arrays(c, cm.compiled())]
+        dt = torch.from_numpy(np.ascontiguousarray(d)).cuda()
+        KS.event_core(*stat, dt)                       # warm-up
+        ms = min(cuda_ms(lambda: KS.event_core(*stat, dt)) for _ in range(3))
+        nsim = CompiledSim(topo, cm, 0)
+        t1 = time.perf_counter()
+        for one in ctls:
+            nsim.run_lowered(one)
+        numpy_ms = (time.perf_counter() - t1) * 1e3
+        bound_ms = event_core_bytes(stat, d.shape[0]) / rate * 1e3
+        row = dict(tasks=c.n, lanes=d.shape[0], steps=2 * c.n,
+                   K=stat[1].shape[1], D=stat[3].shape[1],
+                   W=stat[2].shape[0], ms=ms, us_per_step=ms * 1e3 / (2 * c.n),
+                   numpy_ms=numpy_ms, bound_ms=bound_ms)
+        if key == "plain":
+            got = KS.event_core(*stat, dt)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            want = KS.event_core_ref(*stat, dt)
+            torch.cuda.synchronize()
+            row["plain_ms"] = (time.perf_counter() - t1) * 1e3
+            row["mismatches"] = int((got[0] != want[0]).sum()) + \
+                int((got[1] != want[1]).sum())
+            row["max_abs_err"] = float((got[0] - want[0]).abs().nan_to_num(
+                0.0).max())
+            if row["mismatches"] or not torch.equal(got[0], want[0]):
+                fail(f"[eventcore] the kernel differs from event_core_ref in "
+                     f"{row['mismatches']} elements (mesh2d 16x16 srda, "
+                     f"{d.shape[0]} lanes)")
+            log(f"[eventcore] kernel bit-exact against event_core_ref on "
+                f"the card: mesh2d 16x16 srda, {d.shape[0]} lanes of "
+                f"{c.n} tasks (plain {row['plain_ms']!r} ms once)")
+        out[key] = row
+        log(f"[eventcore] {key}: {c.n} tasks x {d.shape[0]} lanes (K "
+            f"{row['K']}, D {row['D']}, {row['W']} resources): kernel "
+            f"{ms!r} ms ({row['us_per_step']!r} us a step of {2 * c.n}), "
+            f"numpy engine {numpy_ms!r} ms on the same lists, bytes bound "
+            f"{bound_ms!r} ms (not what limits 2n dependent steps)")
+    out["matrix_lists"], out["matrix_core_lists"] = cases, core_lists
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"[eventcore] phase time {out['phase_s']:.3f} s")
+    return out
+
+
+def distributed_rank(rank, world, backend, device, store, out):
+    """One rank of ``phase_distributed``: ring ``world`` BBS broadcasts from
+    roots 0 and world - 1 across the group, each rank's copy against the
+    virtual mesh's on this rank's device and against the payload; writes
+    ``out.<rank>.json``."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, SRC)
+    from repro_torch import api
+    from repro_torch.core import topology as T
+    from repro_torch.core.simconfig import DeviceConfig, SimConfig
+
+    dist.init_process_group(backend, store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    res = {}
+    try:
+        cfg = SimConfig(device=DeviceConfig(device=device))
+        model = api.compile(T.ring(world))
+        g = torch.Generator().manual_seed(0)
+        x = torch.randn(DIST_NBYTES // 4, generator=g)
+        for root in (0, world - 1):
+            ex = model.executable(root=root, nbytes=DIST_NBYTES, config=cfg)
+            mine = ex.run(x, group=dist.group.WORLD)
+            virtual = ex.run(x)[rank]
+            chk = ex.verify(x, group=dist.group.WORLD)
+            times = []
+            for _ in range(3):
+                dist.barrier(device_ids=[mine.device.index]) if mine.is_cuda \
+                    else dist.barrier()
+                t0 = time.perf_counter()
+                ex.run(x, group=dist.group.WORLD)
+                if mine.is_cuda:
+                    torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            res[str(root)] = dict(
+                equal=bool(torch.equal(mine.view(torch.uint8),
+                                       virtual.view(torch.uint8))),
+                ok=chk.ok, missing=list(chk.missing), device=str(mine.device),
+                subrounds=ex.num_subrounds, ms=min(times) * 1e3)
+    finally:
+        dist.destroy_process_group()
+    with open(f"{out}.{rank}.json", "w") as f:
+        json.dump(res, f)
+
+
+def phase_distributed(torch, world=None, backend="nccl", device="cuda"):
+    """The distributed executor (``repro_torch.device.distributed``) over
+    ``min(8, device_count)`` NCCL ranks, one GPU each, when the machine has
+    two or more GPUs: ring BBS broadcasts of 16 MiB, each rank's copy bit
+    for bit against the virtual mesh's. On one GPU it is not run (NCCL puts
+    no two ranks on one GPU) and says so. ``world``, ``backend`` and
+    ``device`` let a CPU rehearsal run it on gloo."""
+    import multiprocessing as mp
+    import tempfile
+    if world is None:
+        count = torch.cuda.device_count()
+        if count < 2:
+            log(f"[distributed] not run: {count} GPU visible, and NCCL "
+                f"cannot put two ranks on one GPU; the executor is held "
+                f"bit for bit on 8 gloo ranks by "
+                f"tests/test_torch_distributed.py")
+            return None
+        world = min(8, count)
+    t0 = time.perf_counter()
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "rank")
+        procs = [ctx.Process(target=distributed_rank, args=(
+            r, world, backend, device, os.path.join(tmp, "store"), out))
+            for r in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + 300
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+        codes = [p.exitcode for p in procs]
+        if codes != [0] * world:
+            fail(f"[distributed] rank exit codes {codes}")
+        ranks = []
+        for r in range(world):
+            with open(f"{out}.{r}.json") as f:
+                ranks.append(json.load(f))
+    res = {}
+    for root in ranks[0]:
+        rows = [rk[root] for rk in ranks]
+        bad = [r for r, row in enumerate(rows)
+               if not (row["equal"] and row["ok"] and not row["missing"])]
+        if bad:
+            fail(f"[distributed] ring {world} root {root}: ranks {bad} differ "
+                 f"from the virtual mesh or the payload")
+        ms = max(row["ms"] for row in rows)
+        res[root] = dict(ms=ms, subrounds=rows[0]["subrounds"],
+                         devices=[row["device"] for row in rows])
+        log(f"[distributed] {backend} ring {world} root {root}, "
+            f"{DIST_NBYTES} B: every rank bit-exact against the virtual "
+            f"mesh and the payload ({rows[0]['subrounds']} sub-rounds; "
+            f"{ms!r} ms a broadcast, host clock, slowest rank, min of 3; "
+            f"devices {res[root]['devices']})")
+    log(f"[distributed] phase time {time.perf_counter() - t0:.3f} s")
+    return dict(world=world, backend=backend, roots=res)
 
 
 def ssd_inputs(torch, b, s, h, dh, ds, dtype, seed, dt_value=None, a=None):
@@ -1460,6 +1766,20 @@ def main():
         f"{cal['mesh2d']['beta_bytes_per_s'] / 1e9!r} GB/s / "
         f"{cal['mesh2d']['rel_err']!r}")
 
+    ec = phase_eventcore(np, torch, rate)
+    if K.launches or FA.launches:
+        fail(f"the event core's path launched ssd_scan {K.launches} and "
+             f"flash_attention {FA.launches} times")
+    sw, pl = ec["sweep"], ec["plain"]
+    log(f"[summary] {name}: event core {ec['launches']} launches on the "
+        f"main path; mesh2d 32x32 srda x {sw['lanes']} lanes "
+        f"{sw['ms']!r} ms in one launch ({sw['us_per_step']!r} us a step) "
+        f"against {sw['numpy_ms']!r} ms for the numpy engine; mesh2d "
+        f"16x16 srda x {pl['lanes']} lanes {pl['ms']!r} ms (plain "
+        f"{pl['plain_ms']!r} ms, numpy {pl['numpy_ms']!r} ms); 64x64 glf "
+        f"{ec['glf']['ms']!r} ms, bine {ec['bine']['ms']!r} ms")
+    dist_res = phase_distributed(torch)
+
     ssd_err = phase_ssd_vs_plain(torch, K, ref)
     cfg = get_config("mamba2-370m")
     FA.launches = 0
@@ -1549,10 +1869,31 @@ def main():
         "library_ms": None, "graph_ms": st["graph_ms"],
         "host_ms": st["host_ms"], "tflops": st["tflops"],
         "share_of_bound": st["share_of_bound"], "f32_ms": st["f32_ms"],
+    }, {
+        # ms, plain_ms, numpy_ms and bound_ms at the lanes held against the
+        # plain version (mesh2d 16 x 16 srda, 12 sizes); "sweep" (mesh2d
+        # 32 x 32 srda, 12 sizes), "glf" and "bine" (mesh2d 64 x 64, one
+        # lane) the other shapes of the main path
+        "name": "event_core", "route": "cuda",
+        "source": "src/repro_torch/csrc/event_core.cu",
+        "replaces": "src/repro/core/kernelsim.py:121",
+        "launches": ec["launches"], "mismatches": pl["mismatches"],
+        "max_abs_err": pl["max_abs_err"],
+        "ms": pl["ms"], "plain_ms": pl["plain_ms"],
+        "numpy_ms": pl["numpy_ms"], "bound_ms": pl["bound_ms"],
+        "bound_by": "bytes", "limited_by": "latency of 2n dependent steps",
+        "library_ms": None, "steps": pl["steps"], "lanes": pl["lanes"],
+        "tasks": pl["tasks"],
+        **{key: {k: ec[key][k] for k in ("tasks", "lanes", "steps", "ms",
+                                         "us_per_step", "numpy_ms",
+                                         "bound_ms")}
+           for key in ("sweep", "glf", "bine")},
+        **regs["event_core"],
     }]
     log(f"[summary] the whole run took {time.perf_counter() - t_start:.1f} s "
         f"after the imports")
     print(json.dumps({"calibration": cal}), flush=True)
+    print(json.dumps({"distributed": dist_res}), flush=True)
     print(name, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -21,8 +21,9 @@ stand up a ``PlanServer`` for orbit-canonical plan reuse, and hand back a
 from its caches, a root of an already-built orbit by relabeling; ``store``
 (a ``repro_torch.core.planstore.PlanStore``) keeps the canonical builds on
 disk across processes. Simulation options ride one
-``config=SimConfig(...)``; ``SimConfig(engine="kernel")`` (the jitted
-event core) is not ported yet and raises.
+``config=SimConfig(...)``; ``SimConfig(engine="kernel")`` runs the
+simulator's event core on the device of its ``device`` block (cuda by
+default; ``repro_torch.core.kernelsim``).
 
 The facade adds no policy of its own: every method delegates to the
 underlying module function, so results equal those of calling the

@@ -385,10 +385,13 @@ def simulate_baseline(topo: Topology, cm: ConflictModel, name: str, root: int,
     lowered task list through ``CompiledSim.run_lowered`` — the lowering is
     memoized per (algorithm, root, nbytes) on the compiled model (and
     optionally persisted via ``store``), so repeated calls pay only the
-    event loop; ``"kernel"`` (the jitted round core) is not ported yet and
-    raises; ``"reference"`` runs the ``EventSimulator`` oracle
-    on a freshly generated task list. The two produce bit-identical
-    results (asserted for the reference in tests/test_engine_equiv.py).
+    event loop; ``"kernel"`` runs the same lowered list through the event
+    core (``repro_torch.core.kernelsim``) on the config's device
+    (``config.device.device``, cuda when the config has no device block;
+    cuda on a host without a GPU raises); ``"reference"`` runs the
+    ``EventSimulator`` oracle on a freshly generated task list. All produce
+    bit-identical results (asserted in tests/test_engine_equiv.py and
+    tests/test_torch_kernelsim.py).
 
     ``max_sim_segments`` (fast engine only) enables the segment-analytic
     path of ``CompiledSim.run_task_list`` for fold-eligible lists: exact
@@ -403,7 +406,8 @@ def simulate_baseline(topo: Topology, cm: ConflictModel, name: str, root: int,
                          max_sim_segments=max_sim_segments, faults=faults)
     engine, faults = cfg.engine, cfg.faults
     max_sim_segments = cfg.max_sim_segments
-    sim = make_engine(topo, cm, root, engine=engine)
+    sim = make_engine(topo, cm, root, engine=engine,
+                      device=cfg.device.device if cfg.device else "cuda")
     if faults:
         tasks = BASELINES[name](topo, root, nbytes)
         return sim.run(tasks, total_blocks=max(t.blk[1] for t in tasks),

@@ -84,9 +84,10 @@ class SimConfig:
     """Simulation options shared by every ``simulate_*`` entrypoint.
 
     ``engine`` selects the execution engine: ``"fast"`` — the flat-array
-    engine, the default everywhere; ``"kernel"`` — the jitted round core
-    over the lowered arrays, not ported yet (``make_engine`` raises; the
-    reference's is ``repro.core.kernelsim``);
+    engine, the default everywhere; ``"kernel"`` — the event core over the
+    lowered arrays (``repro_torch.core.kernelsim``: a hand-written CUDA
+    kernel on the device of the ``device`` block, cuda by default; falls
+    back to the numpy path for faults, pipelines and foldable lists);
     ``"reference"`` — the oracle.
     ``faults`` is an optional ``repro.core.faults.FaultSchedule``; a
     non-empty schedule routes the run through the engine's fault loop.
@@ -96,7 +97,8 @@ class SimConfig:
     extrapolation beyond it) and ``max_sim_segments`` is its task-list
     analogue (``simulate_baseline``). ``device`` is the device-execution
     block (``DeviceConfig``) consumed by ``repro.api`` ``executable()`` /
-    ``repro.device``; it does not affect simulation results. Frozen: derive
+    ``repro.device`` and by the kernel engine, which runs its event core
+    there; it does not affect simulation results. Frozen: derive
     variants with ``dataclasses.replace``.
     """
 

@@ -133,20 +133,20 @@ _WAITING, _READY, _BLOCKED, _RUNNING, _DONE = range(5)
 
 
 def make_engine(topo: Topology, cm: ConflictModel, root: int,
-                engine: str = DEFAULT_ENGINE):
-    """Simulator factory: the reference oracle or the flat-array engine.
-    The jit-kernelized engine (``"kernel"``, the reference's
-    ``repro.core.kernelsim``) is not ported yet and raises."""
+                engine: str = DEFAULT_ENGINE, device="cuda"):
+    """Simulator factory: the reference oracle, the flat-array engine, or
+    the kernelized engine (``"kernel"`` -- the event core over the lowered
+    arrays on ``device``, a hand-written CUDA kernel on cuda and its plain
+    PyTorch version on the CPU; see ``repro_torch.core.kernelsim``).
+    ``device`` is read by the kernel engine alone."""
     if engine == "reference":
         return EventSimulator(topo, cm, root)
     if engine == "fast":
         from repro_torch.core.fastsim import CompiledSim
         return CompiledSim(topo, cm, root)
     if engine == "kernel":
-        raise NotImplementedError(
-            "engine='kernel' (the jitted event core) is not ported yet; see "
-            "the jitted event core (repro_torch/core/kernelsim.py) in "
-            "ROADMAP.md queue 1. Use engine='fast' or 'reference'.")
+        from repro_torch.core.kernelsim import KernelSim
+        return KernelSim(topo, cm, root, device=device)
     raise ValueError(f"unknown engine {engine!r}")
 
 

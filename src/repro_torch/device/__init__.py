@@ -8,7 +8,9 @@ kernel for every sub-round of a broadcast (``permute_rounds``), beside the
 one-sub-round kernel ``permute_step``. ``calibrate`` fits Hockney
 constants from timed ring rounds of that kernel and reports the
 simulator's prediction against the measured broadcast. ``carry`` imports
-schedules the JAX package compiled.
+schedules the JAX package compiled. ``distributed`` runs a plan across the
+ranks of a ``torch.distributed`` group instead, one device a rank
+(``ExecutablePlan.run(x, group=...)``).
 """
 
 from repro_torch.device.calibrate import (CalibratedCost, PredictionRow,

@@ -10,6 +10,7 @@ times the broadcast on n virtual devices of one card::
     ex = model.executable(root=0, nbytes=16 << 20)
     out = ex.run(x)          # (n,) + x.shape, one copy per virtual device
     chk = ex.verify(x)       # bit-exact delivery on every device
+    mine = ex.run(x, group=g)   # across a torch.distributed group, per rank
     t = ex.measure()         # seconds per broadcast
     cost = ex.calibrate()    # Hockney alpha/beta of the virtual mesh
 
@@ -111,24 +112,43 @@ class ExecutablePlan:
             return dict(moves=self.moves())
         return dict(tabs=self.tables())
 
-    def run(self, x: torch.Tensor) -> torch.Tensor:
+    def run(self, x: torch.Tensor, group=None) -> torch.Tensor:
         """Execute the broadcast; returns the per-device copies stacked on a
         leading axis (shape ``(n,) + x.shape``) on the plan's device.
-        ``x`` is only read."""
+        ``x`` is only read.
+
+        With a ``torch.distributed`` process group of n ranks, every rank
+        calls it and each runs its own device
+        (``repro_torch.device.distributed.bbs_broadcast``: NCCL and
+        ``cuda:<local rank>`` on the default device, gloo on ``"cpu"``);
+        each rank gets back its own copy, shape ``x.shape``."""
+        if group is not None:
+            from repro_torch.device import distributed
+            return distributed.bbs_broadcast(
+                x, self.schedule, self.num_groups, group,
+                device=self.device.device)
         prog = self._program()
         return runner.bbs_broadcast(x, self.schedule, self.num_groups,
                                     self.torch_device,
                                     tables=prog.get("tabs"),
                                     moves=prog.get("moves"))
 
-    def verify(self, x: torch.Tensor) -> DeviceDelivery:
+    def verify(self, x: torch.Tensor, group=None) -> DeviceDelivery:
         """Run and compare every device's bytes with the payload's, on the
-        device (no copy of the stacked result to the host)."""
+        device (no copy of the stacked result to the host). With a process
+        group, every rank runs and checks its own copy, and every rank gets
+        the whole group's result."""
+        required = tuple(range(self.schedule.num_devices))
+        if group is not None:
+            from repro_torch.device import distributed
+            missing = tuple(distributed.delivered(
+                self.run(x, group=group), x, len(required), group))
+            return DeviceDelivery(ok=not missing, required=required,
+                                  missing=missing)
         dev = self.torch_device
         ref = x.to(dev).contiguous().reshape(-1).view(torch.uint8)
         out = self.run(x)
         outb = out.reshape(out.shape[0], -1).view(torch.uint8)
-        required = tuple(range(self.schedule.num_devices))
         missing = tuple(v for v in required if not torch.equal(outb[v], ref))
         return DeviceDelivery(ok=not missing, required=required,
                               missing=missing)
@@ -243,7 +263,7 @@ def build_executable(topo: Topology, cm: ConflictModel, root: int,
     pipe = build_pipeline(topo, [tree], cm)
     sched = make_device_schedule(pipe, n, compiled=compiled)
     res = B.simulate_baseline(topo, cm, algo, root, nbytes,
-                              config=SimConfig(engine=cfg.engine))
+                              config=SimConfig(engine=cfg.engine, device=dev))
     return ExecutablePlan(
         topo=topo, cm=cm, root=root, nbytes=float(nbytes), algo=algo,
         candidate=algo, schedule=sched, num_groups=1,

@@ -28,6 +28,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# flags of one source on top of NVCC_FLAGS: the event core's float64 adds
+# must round as numpy's do, so no contraction into fused multiply-adds
+EXTRA_FLAGS: Dict[str, Sequence[str]] = {"event_core": ("-fmad=false",)}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -51,7 +54,8 @@ def _lib_path(name: str) -> Path:
     # the source, the headers it may include and the flags
     src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
         h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    flags = " ".join((*NVCC_FLAGS, *EXTRA_FLAGS.get(name, ())))
+    key = hashlib.sha256(src + flags.encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{key[:16]}.so"
 
 
@@ -69,7 +73,8 @@ def build(names: Sequence[str]) -> Dict[str, Path]:
     procs = {}
     for name, p in todo.items():
         tmp = p.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, *EXTRA_FLAGS.get(name, ()), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, p)

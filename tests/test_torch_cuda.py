@@ -1,8 +1,8 @@
 """Port tests that need an NVIDIA GPU (marker ``cuda``): the hand-written
 kernels (the round step K1 -- one sub-round a launch, and every sub-round
 of a broadcast in one persistent launch, also as the calibration's ring
-rounds --, flash attention K2, the SSD scan K3) against
-their plain PyTorch versions, small broadcasts on the card against the same
+rounds --, flash attention K2, the SSD scan K3, the simulator's event
+core) against their plain PyTorch versions, small broadcasts on the card against the same
 broadcasts on the CPU, and the Mamba-2 and dense LMs on the card against
 the CPU. They skip on a host
 without a GPU; on the card run them with
@@ -586,3 +586,128 @@ def test_dense_lm_on_card_matches_cpu(gpu):
         b = card.decode_step(c_card, toks[:, t:t + 1])[0]
         torch.testing.assert_close(b.cpu(), a, atol=1e-4, rtol=1e-4)
     assert K.launches - before == cfg.layers
+
+
+EC_LISTS = [("mesh2d", (4, 6), "binomial"), ("mesh2d", (4, 6), "flat"),
+            ("mesh2d", (16, 16), "srda"), ("mesh2d", (16, 16), "glf"),
+            ("mesh2d", (16, 16), "bine"), ("mesh2d", (16, 16), "flat"),
+            ("dragonfly", (4, 4, 2), "srda"), ("fat_tree", (4,), "bine")]
+
+
+def _ec_arrays(gpu, topo_name, args, name, sizes):
+    from repro_torch.core import kernelsim as KS
+    from repro_torch.core import topology as T
+    from repro_torch.core.intersection import ALL_PORT, FULL_DUPLEX, \
+        ConflictModel
+
+    topo = getattr(T, topo_name)(*args)
+    cm = ConflictModel(topo, ALL_PORT if topo_name == "dragonfly"
+                       else FULL_DUPLEX)
+    ctl, durs, nbytes = KS.lower_baseline_lanes(topo, cm, name, 0, sizes)
+    ctl.bind(cm.compiled())
+    stat = [torch.from_numpy(a) for a in KS._static_arrays(ctl,
+                                                           cm.compiled())]
+    return topo, cm, ctl, stat, torch.from_numpy(durs), nbytes
+
+
+@pytest.mark.parametrize("topo_name,args,name", EC_LISTS)
+def test_event_core_kernel_matches_plain(gpu, topo_name, args, name):
+    """Bit-exact against ``event_core_ref`` on the CPU, three lanes of one
+    lowered list in one launch."""
+    from repro_torch.core import kernelsim as KS
+
+    _, _, _, stat, durs, _ = _ec_arrays(gpu, topo_name, args, name,
+                                        [4e4, 3e6, 64e6])
+    want = KS.event_core(*stat, durs)
+    before = KS.launches
+    got = KS.event_core(*(t.to(gpu) for t in stat), durs.to(gpu))
+    torch.cuda.synchronize()
+    assert KS.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("zero_cap", [False, True])
+@pytest.mark.parametrize("n,lanes", [(1, 1), (40, 3), (333, 5),
+                                     (2100, 2)])
+def test_event_core_kernel_random_structures(gpu, n, lanes, zero_cap):
+    """Ties, repeated ids, dummy pads, one and several warps and blocks of
+    1,024 threads with many tasks a thread; with ``zero_cap`` the
+    completion step with ``min(fin)`` inf."""
+    from repro_torch.core import kernelsim as KS
+
+    stat = [torch.from_numpy(a) for a in KS.random_structure(
+        np.random.default_rng(n), n, lanes, nres=max(2, n // 8), K=4,
+        D=3, zero_cap=zero_cap)]
+    want = KS.event_core(*stat)
+    got = KS.event_core(*(t.to(gpu) for t in stat))
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_kernelsim_on_card_matches_numpy_and_batches(gpu, monkeypatch):
+    """``KernelSim`` on cuda takes the kernel by default, on lists and on a
+    12-lane batch in one launch, bit-identical to ``CompiledSim``; a
+    foldable list launches nothing."""
+    from repro_torch.core import kernelsim as KS
+    from repro_torch.core.baselines import lower_baseline
+    from repro_torch.core.fastsim import CompiledSim
+
+    monkeypatch.delenv("REPRO_KERNEL_JIT", raising=False)
+    sizes = np.geomspace(1e5, 1e9, 12).tolist()
+    topo, cm, ctl, _, durs, nbytes = _ec_arrays(gpu, "mesh2d", (16, 16),
+                                                "srda", sizes)
+    ks, nsim = KS.KernelSim(topo, cm, 0), CompiledSim(topo, cm, 0)
+    before = KS.launches
+    got = ks.run_lowered_batch(ctl, durs.numpy(), nbytes)
+    assert KS.launches == before + 1
+    for g, s in zip(got, sizes):
+        r = nsim.run_lowered(lower_baseline(topo, cm, "srda", 0, s))
+        assert (g.finish_time, g.deliveries, g.node_finish,
+                g.group_finish) == (r.finish_time, r.deliveries,
+                                    r.node_finish, r.group_finish)
+    one = ks.run_lowered(lower_baseline(topo, cm, "glf", 0, 64e6))
+    assert KS.launches == before + 2
+    assert one.deliveries == nsim.run_lowered(
+        lower_baseline(topo, cm, "glf", 0, 64e6)).deliveries
+    from repro_torch.core import topology as T
+    from repro_torch.core.intersection import ConflictModel
+    small = T.mesh2d(4, 6)
+    fold = lower_baseline(small, ConflictModel(small), "srda", 0, 64e6)
+    assert fold.seg is not None and fold.seg.foldable
+    KS.KernelSim(small, ConflictModel(small), 0).run_lowered(fold)
+    assert KS.launches == before + 2
+
+
+def test_event_core_kernel_rejects_bad_inputs(gpu):
+    from repro_torch.core import kernelsim as KS
+
+    stat = [torch.from_numpy(a).to(gpu) for a in KS.random_structure(
+        np.random.default_rng(0), 10, 2)]
+    with pytest.raises(ValueError):           # durs float32
+        KS.event_core(*stat[:4], stat[4].float())
+    with pytest.raises(ValueError):           # rank on the CPU
+        KS.event_core(stat[0].cpu(), *stat[1:])
+
+
+def test_event_core_runs_the_largest_sweep_list(gpu, monkeypatch):
+    """mesh2d 64 x 64 srda at 64e6, the reference sweep's largest list
+    (53,247 tasks; ``benchmarks/gridsweep.py``), runs on the card in one
+    launch, equal to the numpy engine: no size is routed elsewhere."""
+    from repro_torch.core import kernelsim as KS
+    from repro_torch.core import topology as T
+    from repro_torch.core.baselines import lower_baseline
+    from repro_torch.core.fastsim import CompiledSim
+    from repro_torch.core.intersection import ConflictModel
+
+    monkeypatch.delenv("REPRO_KERNEL_JIT", raising=False)
+    topo = T.mesh2d(64, 64)
+    cm = ConflictModel(topo)
+    ctl = lower_baseline(topo, cm, "srda", 0, 64e6)
+    assert ctl.n == 53247 and not (ctl.seg is not None and ctl.seg.foldable)
+    before = KS.launches
+    got = KS.KernelSim(topo, cm, 0).run_lowered(ctl)
+    assert KS.launches == before + 1
+    want = CompiledSim(topo, cm, 0).run_lowered(ctl)
+    assert (got.finish_time, got.deliveries, got.node_finish) == \
+        (want.finish_time, want.deliveries, want.node_finish)

@@ -139,14 +139,24 @@ def test_device_config_validation():
         assert not hasattr(DeviceConfig(), gone), gone
 
 
-def test_kernel_engine_is_not_ported_yet():
+def test_kernel_engine_is_the_ports_kernelsim(monkeypatch):
+    """``make_engine(engine="kernel")`` returns the port's ``KernelSim``,
+    on cuda by default: building it needs no GPU, running its core on a
+    host without one raises."""
+    from repro_torch.core import kernelsim
     from repro_torch.core import topology as T
+    from repro_torch.core.baselines import lower_baseline
     from repro_torch.core.intersection import ConflictModel
     from repro_torch.core.simulator import make_engine
 
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv("REPRO_KERNEL_JIT", raising=False)
     topo = T.ring(4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_engine(topo, ConflictModel(topo), 0, engine="kernel")
+    cm = ConflictModel(topo)
+    sim = make_engine(topo, cm, 0, engine="kernel")
+    assert type(sim) is kernelsim.KernelSim and sim.device == "cuda"
+    with pytest.raises(RuntimeError, match="cuda"):
+        sim.run_lowered(lower_baseline(topo, cm, "binomial", 0, 4096))
 
 
 def test_plan_server_and_store_serve_plans(tmp_path):
