@@ -8,8 +8,9 @@ Phases, each of which exits non-zero on failure:
 1. build every CUDA kernel of the main paths with ``nvcc`` (sm_90a), all
    sources at once: ``permute_rounds`` (K1, every sub-round of a broadcast
    in one persistent launch), ``permute_step`` (K1's one-sub-round kernel,
-   the yardstick), ``flash_attention`` (K2) and ``ssd_scan`` (K3); print
-   ptxas's registers and spills, and each K2 and K3 instance's shared
+   the yardstick), ``flash_attention`` (K2), ``ssd_scan`` (K3),
+   ``event_core`` and ``event_core_scan`` (EC and its yardstick); print
+   ptxas's registers and spills, and each K2, K3 and EC instance's shared
    memory (K2: bf16 tensor-core and float32 FMA kernels, five head dims
    each, bf16 D 112 on the D 128 tile; K3: ``ssd_tc<dh, ds>`` for bf16,
    twelve instances, and the float32 FMA kernel); a bf16 instance that
@@ -45,18 +46,23 @@ Phases, each of which exits non-zero on failure:
    times, the ring 8 artifact stored and reloaded equal; alpha, beta, the
    fit residual, each size's time, predicted and measured cycle times and
    ``rel_err`` are printed as readings, not gated;
-7. the simulator's event core (``csrc/event_core.cu``): ``tests/test_kernel.py``'s
-   matrix (4 topologies x 7 baselines x 4e4 and 64e6 B) through
-   ``KernelSim.run_lowered(jit=True)`` and ``simulate_baseline(
+7. the simulator's event core (``csrc/event_core.cu``): the matrix of
+   ``tests/test_kernel.py`` (4 topologies x 7 baselines x 4e4 and 64e6 B)
+   through ``KernelSim.run_lowered(jit=True)`` and ``simulate_baseline(
    config=SimConfig(engine="kernel"))`` on cuda, every result equal to the
    numpy engine's, one launch per flat list and none for a foldable one;
    one grid-sweep row, mesh2d 32 x 32 srda at 12 sizes (11,263 tasks a
    lane), in one ``run_lowered_batch`` launch against 12 per-size numpy
    runs; mesh2d 64 x 64 glf and bine at 64e6 (the sweep's widest resource
-   rows); then the kernel bit-exact against ``event_core_ref`` on the card
-   (mesh2d 16 x 16 srda, 12 lanes) and each shape's kernel time (CUDA
-   events, min of 3), time a step, the numpy engine's time on the same
-   lists and the bytes bound;
+   rows) and srda (its largest list, 53,247 tasks), and no launch of the
+   scan kernel; then the kernel bit-exact against ``event_core_ref`` on the
+   card (mesh2d 16 x 16 srda, 12 lanes), bit-equal to the scan kernel it
+   replaced (``csrc/event_core_scan.cu``) on every timed shape, each
+   shape's time of both (CUDA events, in turns: scan, new, new, scan), the
+   new one's in both memory variants, time a step, the compaction's
+   time, the numpy engine's time on the same lists and the bytes bound;
+   and the step floor of the design: the kernel on a chain of tasks, one
+   private resource each;
 8. the distributed executor (``repro_torch.device.distributed``) over
    ``min(8, device_count)`` NCCL ranks, one GPU each, bit for bit against
    the virtual mesh, when the machine has two GPUs or more; on one GPU a
@@ -224,17 +230,30 @@ def phase_build(FA, K):
     from repro_torch import nvcc
     t0 = time.perf_counter()
     names = ["permute_rounds", "permute_step", "flash_attention", "ssd_scan",
-             "event_core"]
+             "event_core", "event_core_scan"]
     nvcc.build(names)
     log(f"[build] {', '.join(names)} built in "
         f"{time.perf_counter() - t0:.3f} s")
     k1 = {}
-    for src in ("permute_rounds", "permute_step", "event_core"):
+    for src in ("permute_rounds", "permute_step", "event_core_scan"):
         for line in nvcc.build_log(src).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build]   {src}: {line.strip()}")
         (_, r, st, ld, _), = ptxas_kernels(nvcc.build_log(src), src)
         k1[src] = dict(registers=r, spill_stores=st, spill_loads=ld)
+    ec = {}
+    for m, r, st, ld, static in ptxas_kernels(
+            nvcc.build_log("event_core"), r"event_core_kernelILb([01])E"):
+        inst = ("global", "shared")[int(m.group(1))]
+        ec[inst] = dict(registers=r, spill_stores=st, spill_loads=ld,
+                        static_smem=static)
+        log(f"[build]   event_core ({inst} variant): {r} registers, spill "
+            f"stores {st} B, spill loads {ld} B, shared memory {static} B "
+            f"static + the lane's dynamic share ([eventcore] rows)")
+    if len(ec) != 2:
+        fail(f"the ptxas report names {len(ec)} event_core instances, "
+             f"expected 2")
+    k1["event_core"] = dict(ec["shared"], instances=ec)
     lib = K._kernel()
     rows = []
     for m, *nums in ptxas_kernels(nvcc.build_log("ssd_scan"),
@@ -733,6 +752,7 @@ EC_NAMES = ("binomial", "flat", "pipeline", "srda", "glf", "bine",
             "mpi_bcast")
 EC_MATRIX_SIZES = (4e4, 64e6)
 EC_SWEEP_LANES = 12       # np.geomspace(1e5, 1e9, 12)
+EC_FLOOR_TASKS = (4096, 16384)   # the step floor's chains
 DIST_NBYTES = 16 << 20
 
 
@@ -743,12 +763,27 @@ def same_result(a, b):
             and a.started == b.started and a.completed == b.completed)
 
 
-def event_core_bytes(stat, lanes):
+def event_core_bytes(st, lanes):
     """Bytes the event core must move for ``lanes`` lanes of one structure:
-    rank, res, caps and deps read once, each lane's durations read once and
-    its completion times and sequence numbers written once."""
-    n = stat[0].numel()
-    return sum(t.numel() * t.element_size() for t in stat) + lanes * n * 20
+    the compacted structure (``kernelsim.Compacted``: the ranks, the rows of
+    entries that can block, the capacities, counts and children) read once,
+    each lane's durations read once and its completion times and sequence
+    numbers written once."""
+    n = st.rank.numel()
+    return sum(t.numel() * t.element_size() for t in st) + lanes * n * 20
+
+
+def chain_structure(np, n):
+    """The step floor's list: task i depends on task i - 1 and holds one
+    private resource, so each step admits or completes one task, checks a
+    one-entry row and wakes no one."""
+    rank = np.arange(n, dtype=np.int32)
+    res = np.arange(n, dtype=np.int32)[:, None]
+    caps = np.ones(n, dtype=np.int32)
+    deps = np.arange(-1, n - 1, dtype=np.int32)[:, None]
+    deps[0, 0] = n
+    durs = np.ones((1, n))
+    return rank, res, caps, deps, durs
 
 
 def phase_eventcore(np, torch, rate):
@@ -760,11 +795,16 @@ def phase_eventcore(np, torch, rate):
     list and none for a foldable one; one grid-sweep row (mesh2d 32 x 32
     srda at 12 sizes) in one ``run_lowered_batch`` launch against 12
     per-size numpy runs; the sweep's widest resource rows (mesh2d 64 x 64
-    glf and bine at 64e6). Then, outside the main path's count: the kernel
-    against ``event_core_ref`` on the card (mesh2d 16 x 16 srda, 12 lanes),
-    and each shape's kernel time (CUDA events, min of 3), time a step, the
-    numpy engine's time on the same lists (host clock) and the bytes bound,
-    which is not what limits a chain of 2n dependent steps."""
+    glf and bine at 64e6) and its largest list (64 x 64 srda). Then,
+    outside the main path's count: the kernel against ``event_core_ref`` on
+    the card (mesh2d 16 x 16 srda, 12 lanes); on each shape the kernel
+    bit-equal to the scan kernel it replaced (``event_core_scan``), both
+    timed in turns (scan, new, new, scan; CUDA events), the new one also in
+    the global memory variant where the shared one fits, a step's time and
+    where it goes (``kernelsim.profile``), the compaction's time, the numpy
+    engine's time on the same lists (host clock) and the bytes bound,
+    which is not what limits a chain of 2n dependent steps; and the step
+    floor of this design, the kernel on a chain of tasks."""
     from repro_torch.core import kernelsim as KS
     from repro_torch.core import topology as T
     from repro_torch.core.baselines import lower_baseline, simulate_baseline
@@ -784,7 +824,7 @@ def phase_eventcore(np, torch, rate):
             models[key] = (topo, ConflictModel(topo, mode))
         return models[key]
 
-    KS.launches = 0
+    KS.launches = KS.scan_launches = 0
     cases = core_lists = 0
     for tname, kind, args, mode in EC_TOPOS:
         topo, cm = model(kind, args, mode)
@@ -836,19 +876,25 @@ def phase_eventcore(np, torch, rate):
         f"numpy run")
     topo, cm = model("mesh2d", (64, 64))
     ks, nsim = KS.KernelSim(topo, cm, 0), CompiledSim(topo, cm, 0)
-    for name in ("glf", "bine"):
+    numpy_ms = {}
+    for name in ("glf", "bine", "srda"):
         c = lower_baseline(topo, cm, name, 0, 64e6)
         before = KS.launches
         g = ks.run_lowered(c)
-        if KS.launches != before + 1 or not same_result(
-                g, nsim.run_lowered(c)):
+        t1 = time.perf_counter()
+        want = nsim.run_lowered(c)
+        numpy_ms[name] = (time.perf_counter() - t1) * 1e3
+        if KS.launches != before + 1 or not same_result(g, want):
             fail(f"[eventcore] mesh2d 64x64 {name}: {KS.launches - before} "
                  f"launches, or the result differs from the numpy engine")
         shapes[name] = (topo, cm, c, np.asarray([c.durs]), [c])
         log(f"[eventcore] mesh2d 64x64 {name} at 64e6: {c.n} tasks, "
             f"resource rows {max(len(r) for r in c.res_ids)} wide, equal "
             f"to the numpy engine")
-    launches = KS.launches
+    launches, scan_launches = KS.launches, KS.scan_launches
+    if scan_launches:
+        fail(f"[eventcore] the main path launched event_core_scan "
+             f"{KS.scan_launches} times")
 
     # the kernel against the plain version on the card
     topo, cm = model("mesh2d", (16, 16))
@@ -861,18 +907,15 @@ def phase_eventcore(np, torch, rate):
         stat = [torch.from_numpy(a).cuda() for a in
                 KS._static_arrays(c, cm.compiled())]
         dt = torch.from_numpy(np.ascontiguousarray(d)).cuda()
-        KS.event_core(*stat, dt)                       # warm-up
-        ms = min(cuda_ms(lambda: KS.event_core(*stat, dt)) for _ in range(3))
-        nsim = CompiledSim(topo, cm, 0)
-        t1 = time.perf_counter()
-        for one in ctls:
-            nsim.run_lowered(one)
-        numpy_ms = (time.perf_counter() - t1) * 1e3
-        bound_ms = event_core_bytes(stat, d.shape[0]) / rate * 1e3
-        row = dict(tasks=c.n, lanes=d.shape[0], steps=2 * c.n,
-                   K=stat[1].shape[1], D=stat[3].shape[1],
-                   W=stat[2].shape[0], ms=ms, us_per_step=ms * 1e3 / (2 * c.n),
-                   numpy_ms=numpy_ms, bound_ms=bound_ms)
+        row = eventcore_times(torch, KS, stat, dt, rate, key)
+        if key in numpy_ms:
+            row["numpy_ms"] = numpy_ms[key]
+        else:
+            nsim = CompiledSim(topo, cm, 0)
+            t1 = time.perf_counter()
+            for one in ctls:
+                nsim.run_lowered(one)
+            row["numpy_ms"] = (time.perf_counter() - t1) * 1e3
         if key == "plain":
             got = KS.event_core(*stat, dt)
             torch.cuda.synchronize()
@@ -893,15 +936,103 @@ def phase_eventcore(np, torch, rate):
                 f"{c.n} tasks (plain {row['plain_ms']!r} ms once)")
         out[key] = row
         log(f"[eventcore] {key}: {c.n} tasks x {d.shape[0]} lanes (K "
-            f"{row['K']}, D {row['D']}, {row['W']} resources): kernel "
-            f"{ms!r} ms ({row['us_per_step']!r} us a step of {2 * c.n}), "
-            f"numpy engine {numpy_ms!r} ms on the same lists, bytes bound "
-            f"{bound_ms!r} ms (not what limits 2n dependent steps)")
+            f"{row['K']}, D {row['D']}, {row['W']} resources, {row['kept']} "
+            f"kept; {row['entries']} row entries kept of "
+            f"{row['padded_entries']}; {row['memory']} memory, "
+            f"{row['smem']} B dynamic shared memory): kernel {row['ms']!r} "
+            f"ms ({row['us_per_step']!r} us a step of {row['steps']}; by "
+            f"memory variant {row['variants_ms']}), scan kernel "
+            f"{row['scan_ms']!r} ms ({row['scan_us_per_step']!r} us a "
+            f"step), bit-equal; compaction {row['prep_ms']!r} ms; numpy "
+            f"engine {row['numpy_ms']!r} ms on the same lists; bytes bound "
+            f"{row['bound_ms']!r} ms (not what limits 2n dependent steps)")
+
+    floor = {}
+    for n in EC_FLOOR_TASKS:
+        stat = [torch.from_numpy(a).cuda() for a in chain_structure(np, n)]
+        st = KS.compact_structure(*stat[:4])
+        KS.launch(st, stat[4])                             # warm-up
+        ms = min(cuda_ms(lambda: KS.launch(st, stat[4])) for _ in range(3))
+        want = torch.arange(1, n + 1, dtype=torch.float64,
+                            device=stat[4].device)
+        if not torch.equal(KS.launch(st, stat[4])[0][0], want):
+            fail(f"[eventcore] the chain of {n} tasks did not complete at "
+                 f"1, 2, ..., n")
+        floor[n] = dict(ms=ms, us_per_step=ms * 1e3 / (2 * n),
+                        profile=eventcore_profile(KS, st, stat[4],
+                                                  f"chain of {n}"))
+        log(f"[eventcore] step floor of this design (not of the card): a "
+            f"chain of {n} tasks, one private resource each, {ms!r} ms = "
+            f"{floor[n]['us_per_step']!r} us a step of {2 * n}")
+    out["floor"] = floor
+    out["floor_us_per_step"] = min(f["us_per_step"] for f in floor.values())
     out["matrix_lists"], out["matrix_core_lists"] = cases, core_lists
-    out["launches"] = launches
+    out["launches"], out["scan_launches"] = launches, scan_launches
     out["phase_s"] = time.perf_counter() - t0
     log(f"[eventcore] phase time {out['phase_s']:.3f} s")
     return out
+
+
+def eventcore_profile(KS, st, dt, key):
+    """Where a step's time goes on this shape: the kernel built with
+    ``EC_PROFILE`` (``kernelsim.profile``), lane 0's clock cycles of each
+    phase a step and its counts a task."""
+    n = st.rank.numel()
+    prof = KS.profile(st, dt)
+    cyc = {k: v / (2 * n) for k, v in prof["cycles"].items()}
+    cnt = {k: v / n for k, v in prof["counts"].items()}
+    log(f"[eventcore] {key} profile (lane 0, EC_PROFILE build): cycles a "
+        f"step {sum(cyc.values())!r}: " +
+        ", ".join(f"{k} {v!r}" for k, v in cyc.items()) + "; a task: " +
+        ", ".join(f"{k} {v!r}" for k, v in cnt.items()))
+    return dict(cycles_per_step=cyc, counts_per_task=cnt)
+
+
+def eventcore_times(torch, KS, stat, dt, rate, key):
+    """The event core on one shape: the new kernel against the scan kernel,
+    bit for bit, each timed in turns (scan, new, new, scan; CUDA events,
+    one call a turn after a warm-up of each), the new one also in the global
+    memory variant where the shared one fits; the compaction's time; the
+    bytes bound."""
+    L, n = dt.shape
+    st = KS.compact_structure(*stat)
+    torch.cuda.synchronize()
+    prep_ms = min(cuda_ms(lambda: KS.compact_structure(*stat))
+                  for _ in range(3))
+    new = KS.launch(st, dt)
+    scan = KS.event_core_scan(*stat, dt)
+    scan_err = float((new[0] - scan[0]).abs().nan_to_num(0.0).max())
+    if not (torch.equal(new[0], scan[0]) and torch.equal(new[1], scan[1])):
+        fail(f"[eventcore] {key}: the kernel differs from event_core_scan "
+             f"(largest difference {scan_err!r})")
+    turns = [cuda_ms(lambda: KS.event_core_scan(*stat, dt)),
+             cuda_ms(lambda: KS.launch(st, dt)),
+             cuda_ms(lambda: KS.launch(st, dt)),
+             cuda_ms(lambda: KS.event_core_scan(*stat, dt))]
+    memory = KS.variant(n, st.caps.numel())
+    variants_ms = {memory: min(turns[1:3])}
+    if memory == "shared":
+        got = KS.launch(st, dt, memory="global")
+        if not (torch.equal(got[0], scan[0]) and torch.equal(got[1],
+                                                             scan[1])):
+            fail(f"[eventcore] {key}: the global variant differs from "
+                 f"event_core_scan")
+        variants_ms["global"] = cuda_ms(lambda: KS.launch(st, dt,
+                                                          memory="global"))
+    lib = KS._kernel()
+    ms, scan_ms = min(turns[1:3]), min(turns[0], turns[3])
+    prof = eventcore_profile(KS, st, dt, key)
+    return dict(tasks=n, lanes=L, steps=2 * n, K=stat[1].shape[1],
+                D=stat[3].shape[1], W=stat[2].shape[0],
+                kept=st.caps.numel(), entries=st.row_res.numel(),
+                padded_entries=stat[1].numel(), memory=memory,
+                smem=lib.event_core_shared_bytes(
+                    n, st.caps.numel(), int(memory == "shared")),
+                ms=ms, us_per_step=ms * 1e3 / (2 * n), turns_ms=turns,
+                scan_ms=scan_ms, scan_us_per_step=scan_ms * 1e3 / (2 * n),
+                variants_ms=variants_ms, prep_ms=prep_ms, scan_err=scan_err,
+                profile=prof,
+                bound_ms=event_core_bytes(st, L) / rate * 1e3)
 
 
 def distributed_rank(rank, world, backend, device, store, out):
@@ -1718,6 +1849,7 @@ def main():
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import ssd_scan as K
+    from repro_torch.core import kernelsim as KS
     from repro_torch.launch import serve
     from repro_torch.models.model import LM
 
@@ -1773,11 +1905,16 @@ def main():
     sw, pl = ec["sweep"], ec["plain"]
     log(f"[summary] {name}: event core {ec['launches']} launches on the "
         f"main path; mesh2d 32x32 srda x {sw['lanes']} lanes "
-        f"{sw['ms']!r} ms in one launch ({sw['us_per_step']!r} us a step) "
-        f"against {sw['numpy_ms']!r} ms for the numpy engine; mesh2d "
-        f"16x16 srda x {pl['lanes']} lanes {pl['ms']!r} ms (plain "
+        f"{sw['ms']!r} ms in one launch ({sw['us_per_step']!r} us a step; "
+        f"scan kernel {sw['scan_ms']!r} ms) against {sw['numpy_ms']!r} ms "
+        f"for the numpy engine; mesh2d 16x16 srda x {pl['lanes']} lanes "
+        f"{pl['ms']!r} ms (scan {pl['scan_ms']!r} ms, plain "
         f"{pl['plain_ms']!r} ms, numpy {pl['numpy_ms']!r} ms); 64x64 glf "
-        f"{ec['glf']['ms']!r} ms, bine {ec['bine']['ms']!r} ms")
+        f"{ec['glf']['ms']!r} ms (scan {ec['glf']['scan_ms']!r}), bine "
+        f"{ec['bine']['ms']!r} ms (scan {ec['bine']['scan_ms']!r}, numpy "
+        f"{ec['bine']['numpy_ms']!r}), srda {ec['srda']['ms']!r} ms (scan "
+        f"{ec['srda']['scan_ms']!r}, numpy {ec['srda']['numpy_ms']!r}); "
+        f"step floor {ec['floor_us_per_step']!r} us")
     dist_res = phase_distributed(torch)
 
     ssd_err = phase_ssd_vs_plain(torch, K, ref)
@@ -1870,25 +2007,41 @@ def main():
         "host_ms": st["host_ms"], "tflops": st["tflops"],
         "share_of_bound": st["share_of_bound"], "f32_ms": st["f32_ms"],
     }, {
-        # ms, plain_ms, numpy_ms and bound_ms at the lanes held against the
-        # plain version (mesh2d 16 x 16 srda, 12 sizes); "sweep" (mesh2d
-        # 32 x 32 srda, 12 sizes), "glf" and "bine" (mesh2d 64 x 64, one
-        # lane) the other shapes of the main path
+        # ms, scan_ms, plain_ms, numpy_ms and bound_ms at the lanes held
+        # against the plain version (mesh2d 16 x 16 srda, 12 sizes);
+        # "sweep" (mesh2d 32 x 32 srda, 12 sizes), "glf", "bine" and "srda"
+        # (mesh2d 64 x 64, one lane) the other shapes of the main path;
+        # floor_us_per_step the design's step on a chain of tasks
         "name": "event_core", "route": "cuda",
         "source": "src/repro_torch/csrc/event_core.cu",
         "replaces": "src/repro/core/kernelsim.py:121",
         "launches": ec["launches"], "mismatches": pl["mismatches"],
         "max_abs_err": pl["max_abs_err"],
-        "ms": pl["ms"], "plain_ms": pl["plain_ms"],
+        "ms": pl["ms"], "scan_ms": pl["scan_ms"], "plain_ms": pl["plain_ms"],
         "numpy_ms": pl["numpy_ms"], "bound_ms": pl["bound_ms"],
         "bound_by": "bytes", "limited_by": "latency of 2n dependent steps",
         "library_ms": None, "steps": pl["steps"], "lanes": pl["lanes"],
         "tasks": pl["tasks"],
-        **{key: {k: ec[key][k] for k in ("tasks", "lanes", "steps", "ms",
-                                         "us_per_step", "numpy_ms",
-                                         "bound_ms")}
-           for key in ("sweep", "glf", "bine")},
+        "floor_us_per_step": ec["floor_us_per_step"],
+        **{key: {k: ec[key][k] for k in (
+            "tasks", "lanes", "steps", "ms", "us_per_step", "scan_ms",
+            "scan_us_per_step", "variants_ms", "prep_ms", "memory", "numpy_ms",
+            "bound_ms")} for key in ("sweep", "glf", "bine", "srda")},
         **regs["event_core"],
+    }, {
+        # the scan design, the kernel's first form: the main path no longer
+        # launches it
+        # (launches 0); timed in turns with event_core on the same shapes
+        "name": "event_core_scan", "route": "cuda",
+        "source": "src/repro_torch/csrc/event_core_scan.cu",
+        "replaces": "src/repro/core/kernelsim.py:121",
+        "launches": ec["scan_launches"], "max_abs_err": pl["scan_err"],
+        "ms": pl["scan_ms"], "plain_ms": pl["plain_ms"],
+        "bound_ms": pl["bound_ms"], "bound_by": "bytes",
+        "library_ms": None,
+        **{key: ec[key]["scan_ms"] for key in ("sweep", "glf", "bine",
+                                                "srda")},
+        **regs["event_core_scan"],
     }]
     log(f"[summary] the whole run took {time.perf_counter() - t_start:.1f} s "
         f"after the imports")

@@ -17,10 +17,16 @@ the per-task completion times and admission sequence numbers afterwards
 (``_postprocess``, numpy, as in the reference).
 
 ``event_core`` is the core for ``L`` lanes (message sizes) that share one
-structure: on a CUDA tensor one launch of the hand-written kernel
-``csrc/event_core.cu`` (one block per lane; the lane's 2n steps run inside
-the block), on a CPU tensor the plain PyTorch version ``event_core_ref``;
-on any other device it raises. ``launches`` counts the kernel's launches.
+structure: on CUDA tensors ``compact_structure`` (the rows cut to the
+entries that can block, tasks relabelled by rank, the children of each
+task) and one launch of the hand-written kernel ``csrc/event_core.cu``
+(``launch``: one warp a lane, the lane's 2n steps inside it, a ready
+bitmap, parked waiters and a running list, so a step touches only what
+its effect changes); on CPU tensors the plain PyTorch version
+``event_core_ref``; on any other device it raises. ``launches`` counts the
+kernel's launches. ``event_core_scan`` launches the scan design it
+replaced (``csrc/event_core_scan.cu``, each step a scan of all n tasks),
+kept as its yardstick and called by no path of the port.
 
 Dispatch, as in the reference:
 
@@ -46,7 +52,7 @@ from __future__ import annotations
 import copy
 import ctypes
 import os
-from typing import List, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -57,13 +63,15 @@ from repro_torch.core.routing import CompiledTaskList
 from repro_torch.core.simulator import SimResult
 from repro_torch.core.topology import Topology
 
-launches = 0          # kernel launches of event_core since the last reset
+launches = 0          # launches of csrc/event_core.cu since the last reset
+variant_launches = {"shared": 0, "global": 0}   # the same, by memory variant
+scan_launches = 0     # launches of csrc/event_core_scan.cu (the yardstick)
 
 # completions cannot tie on (time, seq): seq is unique, so this sentinel
 # only pads the masked argmins
 _BIG_SEQ = np.int32(2 ** 31 - 1)
 
-_lib = None
+_lib = _scan_lib = None
 
 
 def _jit_default(device) -> bool:
@@ -176,18 +184,90 @@ def random_structure(rng: np.random.Generator, n: int, lanes: int,
             deps.astype(np.int32), durs)
 
 
+class Compacted(NamedTuple):
+    """The structure the kernel walks, shared by every lane and built once
+    per call by ``compact_structure``. Tasks are relabelled by rank: row,
+    dependency count and children of rank ``p`` belong to task ``inv[p]``.
+    Resources that can never block are dropped and the rest renumbered."""
+    rank: torch.Tensor       # int32 [n], task -> rank (the input)
+    inv: torch.Tensor        # int32 [n], rank -> task
+    row_ptr: torch.Tensor    # int32 [n + 1], CSR of the kept resource rows
+    row_res: torch.Tensor    # int32 [E], kept ids in [0, W'), repeats kept
+    caps: torch.Tensor       # int32 [W'], capacity of each kept resource
+    dep_n: torch.Tensor      # int32 [n], unmet dependencies at the start
+    ch_ptr: torch.Tensor     # int32 [n + 1], CSR of the children
+    ch: torch.Tensor         # int32 [C], child ranks, repeats kept
+
+
+def compact_structure(rank: torch.Tensor, res: torch.Tensor,
+                      caps: torch.Tensor, deps: torch.Tensor) -> Compacted:
+    """The padded structure of ``event_core_ref`` as the kernel's CSR, in
+    vectorised torch ops on the tensors' device.
+
+    A resource whose capacity exceeds the times it occurs over all rows
+    never blocks: its occupancy counts running tasks, each of which holds
+    an entry of it, and the task being checked holds one more. Its entries
+    are dropped (the dummy pad, capacity 2**30, among them); the others
+    stay in row order, a repeated id as often as it occurs, since
+    admission adds each entry. The children of a task are the tasks whose
+    dependency rows name it, once per naming; the sentinel ``n`` has
+    none."""
+    n = res.shape[0]
+    dev = res.device
+    rank_l, res_l, deps_l = rank.long(), res.long(), deps.long()
+    occ = torch.bincount(res_l.reshape(-1), minlength=caps.shape[0])
+    keep = caps.long() <= occ
+    kid = torch.cumsum(keep, 0) - 1
+    inv = torch.argsort(rank_l)
+    rows = res_l[inv]
+    kept = keep[rows]
+    row_ptr = torch.zeros(n + 1, dtype=torch.long, device=dev)
+    row_ptr[1:] = torch.cumsum(kept.sum(1), 0)
+    named = deps_l != n
+    parent = rank_l[deps_l[named]]
+    child = rank_l[torch.arange(n, device=dev)[:, None].expand_as(deps_l)[
+        named]]
+    order = torch.argsort(parent, stable=True)
+    ch_ptr = torch.zeros(n + 1, dtype=torch.long, device=dev)
+    ch_ptr[1:] = torch.cumsum(torch.bincount(parent, minlength=n), 0)
+    i32 = torch.int32
+    return Compacted(rank=rank, inv=inv.to(i32), row_ptr=row_ptr.to(i32),
+                     row_res=kid[rows[kept]].to(i32), caps=caps[keep].to(i32),
+                     dep_n=named.sum(1)[inv].to(i32), ch_ptr=ch_ptr.to(i32),
+                     ch=child[order].to(i32))
+
+
+def _bind(lib) -> None:
+    lib.event_core.argtypes = [ctypes.c_void_p] * 9 + \
+        [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4
+    lib.event_core.restype = ctypes.c_int
+    for fn in (lib.event_core_shared_bytes, lib.event_core_work_bytes):
+        fn.argtypes = [ctypes.c_int] * 3
+        fn.restype = ctypes.c_longlong
+    lib.event_core_max_shared.argtypes = [ctypes.c_int]
+    lib.event_core_max_shared.restype = ctypes.c_int
+
+
 def _kernel():
     global _lib
     if _lib is None:
         from repro_torch.nvcc import load
         lib = load("event_core")
-        lib.event_core.argtypes = [ctypes.c_void_p] * 5 + \
-            [ctypes.c_int] * 5 + [ctypes.c_void_p] * 6
-        lib.event_core.restype = ctypes.c_int
-        lib.event_core_threads.argtypes = [ctypes.c_int]
-        lib.event_core_threads.restype = ctypes.c_int
+        _bind(lib)
         _lib = lib
     return _lib
+
+
+def _scan_kernel():
+    global _scan_lib
+    if _scan_lib is None:
+        from repro_torch.nvcc import load
+        lib = load("event_core_scan")
+        lib.event_core_scan.argtypes = [ctypes.c_void_p] * 5 + \
+            [ctypes.c_int] * 5 + [ctypes.c_void_p] * 6
+        lib.event_core_scan.restype = ctypes.c_int
+        _scan_lib = lib
+    return _scan_lib
 
 
 def _check(rank, res, caps, deps, durs) -> None:
@@ -211,46 +291,162 @@ def _check(rank, res, caps, deps, durs) -> None:
     if min(res.shape[1], deps.shape[1], caps.shape[0]) < 1:
         raise ValueError("res and deps need one column and caps one entry "
                          "at least (pad with the dummy id and n)")
+    if durs.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"event_core runs on cuda or cpu, not "
+                         f"{durs.device}")
+    if n >= 2 ** 31 - 1 or L >= 2 ** 31:
+        raise ValueError(f"{L} lanes of {n} tasks do not fit the kernel's "
+                         f"int32 indexes")
 
 
 def event_core(rank: torch.Tensor, res: torch.Tensor, caps: torch.Tensor,
                deps: torch.Tensor, durs: torch.Tensor,
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The event core for ``L`` lanes of one structure (arguments and
-    results as ``event_core_ref``): one launch of the CUDA kernel for CUDA
-    tensors, ``event_core_ref`` for CPU tensors. Every tensor is
-    contiguous and lies on ``durs``' device."""
-    global launches
+    results as ``event_core_ref``): ``compact_structure`` and one launch
+    of the CUDA kernel (``launch``) for CUDA tensors, ``event_core_ref``
+    for CPU tensors. Every tensor is contiguous and lies on ``durs``'
+    device."""
     _check(rank, res, caps, deps, durs)
     if durs.device.type == "cpu":
         return event_core_ref(rank, res, caps, deps, durs)
+    return launch(compact_structure(rank, res, caps, deps), durs)
+
+
+def variant(n: int, nres: int) -> str:
+    """The kernel's memory variant for ``n`` tasks and ``nres`` kept
+    resources on the current device: ``"shared"`` when every piece of a
+    lane's state fits the block's shared memory, else ``"global"`` (task
+    state and wait lists in the lane's workspace); raises when not even the
+    room, the ready bitmap and the running list's shared slots fit."""
+    lib = _kernel()
+    for name, flag in (("shared", 1), ("global", 0)):
+        if lib.event_core_shared_bytes(n, nres, flag) <= \
+                lib.event_core_max_shared(flag):
+            return name
+    raise ValueError(f"{n} tasks and {nres} resources need "
+                     f"{lib.event_core_shared_bytes(n, nres, 0)} B of shared "
+                     f"memory a block, the device allows "
+                     f"{lib.event_core_max_shared(0)}")
+
+
+def launch(st: Compacted, durs: torch.Tensor, memory: Optional[str] = None,
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of ``csrc/event_core.cu`` (a warp a lane) over the
+    compacted structure ``st`` for ``durs`` float64 ``[L, n]`` on a CUDA
+    device; returns what ``event_core_ref`` returns. ``memory`` picks the
+    variant (``variant``'s choice by default); a shared-memory size the
+    device refuses raises."""
+    global launches
+    out, memory = _run(_kernel(), st, durs, memory)
+    launches += 1
+    variant_launches[memory] += 1
+    return out
+
+
+PROFILE_PHASES = ("find", "window", "check", "park/admit", "select",
+                  "status", "rows+wake", "children")
+PROFILE_COUNTS = ("candidates", "rounds", "parks", "wake hops",
+                  "admissions")
+
+
+def profile(st: Compacted, durs: torch.Tensor,
+            memory: Optional[str] = None) -> dict:
+    """Where a step's time goes: one launch of the kernel built with
+    ``EC_PROFILE`` (not counted in ``launches``), whose first lane adds the
+    clock cycles of each phase of a step and counts its work. Returns
+    ``{"cycles": {phase: total}, "counts": {name: total}}`` for lane 0 of
+    ``durs``, and checks that the results equal ``launch``'s."""
+    from repro_torch.nvcc import load
+    lib = load("event_core", defines=("EC_PROFILE",))
+    _bind(lib)
+    lib.event_core_profile.argtypes = [ctypes.c_void_p]
+    lib.event_core_profile.restype = ctypes.c_int
+    (comp, seqs), _ = _run(lib, st, durs, memory)
+    out = (ctypes.c_ulonglong * 16)()
+    torch.cuda.synchronize(durs.device)
+    if lib.event_core_profile(ctypes.addressof(out)) != 0:
+        raise RuntimeError("event_core_profile failed")
+    want = _run(_kernel(), st, durs, memory)[0]
+    if not (torch.equal(comp, want[0]) and torch.equal(seqs, want[1])):
+        raise RuntimeError("the profiled kernel differs from the kernel")
+    return {"cycles": dict(zip(PROFILE_PHASES, out[:8])),
+            "counts": dict(zip(PROFILE_COUNTS, out[8:13]))}
+
+
+def _run(lib, st: Compacted, durs: torch.Tensor, memory: Optional[str]):
     if durs.device.type != "cuda":
-        raise ValueError(f"event_core runs on cuda or cpu, not "
+        raise ValueError(f"the event core kernel runs on cuda, not "
                          f"{durs.device}")
+    L, n = durs.shape
+    dev = durs.device
+    if L == 0 or n == 0:
+        return (torch.empty((L, n), dtype=torch.float64, device=dev),
+                torch.empty((L, n), dtype=torch.int32, device=dev)), "shared"
+    if st.row_res.numel() >= 2 ** 31 or st.ch.numel() >= 2 ** 31:
+        raise ValueError("the compacted rows do not fit int32 offsets")
+    nres = st.caps.shape[0]
+    with torch.cuda.device(dev):
+        memory = memory or variant(n, nres)
+        if memory not in ("shared", "global"):
+            raise ValueError(f"memory is 'shared' or 'global', not "
+                             f"{memory!r}")
+        flag = int(memory == "shared")
+        # the kernel reads durations and writes results in rank order
+        durs_r = durs.index_select(1, st.inv.long())
+        comp = torch.empty((L, n), dtype=torch.float64, device=dev)
+        seqs = torch.empty((L, n), dtype=torch.int32, device=dev)
+        per_lane = lib.event_core_work_bytes(n, nres, flag)
+        work = torch.empty((L, max(per_lane, 16)), dtype=torch.uint8,
+                           device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.event_core(*(t.data_ptr() for t in (
+            st.rank, st.inv, st.row_ptr, st.row_res, st.caps, st.dep_n,
+            st.ch_ptr, st.ch, durs_r)), n, nres, L, flag, comp.data_ptr(),
+            seqs.data_ptr(), work.data_ptr(), stream)
+        if rc != 0:
+            raise RuntimeError(f"event_core kernel launch failed: CUDA "
+                               f"error {rc} ({memory} memory)")
+        order = st.rank.long()
+        return (comp.index_select(1, order),
+                seqs.index_select(1, order)), memory
+
+
+def event_core_scan(rank: torch.Tensor, res: torch.Tensor,
+                    caps: torch.Tensor, deps: torch.Tensor,
+                    durs: torch.Tensor,
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The scan design (``csrc/event_core_scan.cu``, the kernel's first
+    form, each step a scan of all n tasks) on CUDA tensors, arguments and
+    results as
+    ``event_core_ref``. The yardstick of ``launch``: no path of the port
+    calls it."""
+    global scan_launches
+    _check(rank, res, caps, deps, durs)
+    if durs.device.type != "cuda":
+        raise ValueError(f"event_core_scan runs on cuda, not {durs.device}")
     L, n = durs.shape
     dev = durs.device
     comp = torch.empty((L, n), dtype=torch.float64, device=dev)
     seqs = torch.empty((L, n), dtype=torch.int32, device=dev)
     if L == 0 or n == 0:
         return comp, seqs
-    if n >= 2 ** 31 - 1 or L >= 2 ** 31:
-        raise ValueError(f"{L} lanes of {n} tasks do not fit the kernel's "
-                         f"int32 indexes")
     K, D, W = res.shape[1], deps.shape[1], caps.shape[0]
     status = torch.empty((L, n + 1), dtype=torch.int8, device=dev)
     busy = torch.empty((L, W), dtype=torch.int32, device=dev)
     fin = torch.empty((L, n), dtype=torch.float64, device=dev)
-    lib = _kernel()
+    lib = _scan_kernel()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.event_core(rank.data_ptr(), res.data_ptr(), caps.data_ptr(),
-                            deps.data_ptr(), durs.data_ptr(), n, K, D, W, L,
-                            comp.data_ptr(), seqs.data_ptr(),
-                            status.data_ptr(), busy.data_ptr(),
-                            fin.data_ptr(), stream)
+        rc = lib.event_core_scan(
+            rank.data_ptr(), res.data_ptr(), caps.data_ptr(),
+            deps.data_ptr(), durs.data_ptr(), n, K, D, W, L,
+            comp.data_ptr(), seqs.data_ptr(), status.data_ptr(),
+            busy.data_ptr(), fin.data_ptr(), stream)
     if rc != 0:
-        raise RuntimeError(f"event_core kernel launch failed: CUDA error {rc}")
-    launches += 1
+        raise RuntimeError(f"event_core_scan kernel launch failed: CUDA "
+                           f"error {rc}")
+    scan_launches += 1
     return comp, seqs
 
 

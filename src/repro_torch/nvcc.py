@@ -22,17 +22,18 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# flags of one source on top of NVCC_FLAGS: the event core's float64 adds
+# flags of one source on top of NVCC_FLAGS: the event cores' float64 adds
 # must round as numpy's do, so no contraction into fused multiply-adds
-EXTRA_FLAGS: Dict[str, Sequence[str]] = {"event_core": ("-fmad=false",)}
+EXTRA_FLAGS: Dict[str, Sequence[str]] = {"event_core": ("-fmad=false",),
+                                         "event_core_scan": ("-fmad=false",)}
 
-_libs: Dict[str, ctypes.CDLL] = {}
+_libs: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
 _lock = threading.Lock()
 
 
@@ -50,22 +51,29 @@ def nvcc_path() -> str:
                        "the port's CUDA kernels are built from source")
 
 
-def _lib_path(name: str) -> Path:
+def _flags(name: str, defines: Sequence[str]) -> Tuple[str, ...]:
+    return (*NVCC_FLAGS, *EXTRA_FLAGS.get(name, ()),
+            *(f"-D{d}" for d in defines))
+
+
+def _lib_path(name: str, defines: Sequence[str] = ()) -> Path:
     # the source, the headers it may include and the flags
     src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
         h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
-    flags = " ".join((*NVCC_FLAGS, *EXTRA_FLAGS.get(name, ())))
+    flags = " ".join(_flags(name, defines))
     key = hashlib.sha256(src + flags.encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{key[:16]}.so"
 
 
-def build(names: Sequence[str]) -> Dict[str, Path]:
+def build(names: Sequence[str], defines: Sequence[str] = ()
+          ) -> Dict[str, Path]:
     """Compile every named source that has no up-to-date library yet, all
-    ``nvcc`` processes started together; returns the library paths. The
-    compiler's report (``-Xptxas -v``: registers, spills) is kept beside
-    each library as ``.log``."""
+    ``nvcc`` processes started together, with ``-D`` for each of
+    ``defines``; returns the library paths. The compiler's report
+    (``-Xptxas -v``: registers, spills) is kept beside each library as
+    ``.log``."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    paths = {name: _lib_path(name) for name in names}
+    paths = {name: _lib_path(name, defines) for name in names}
     todo = {name: p for name, p in paths.items() if not p.exists()}
     if not todo:
         return paths
@@ -73,7 +81,7 @@ def build(names: Sequence[str]) -> Dict[str, Path]:
     procs = {}
     for name, p in todo.items():
         tmp = p.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, *EXTRA_FLAGS.get(name, ()), "-o", str(tmp),
+        cmd = [nvcc, *_flags(name, defines), "-o", str(tmp),
                str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
@@ -91,12 +99,15 @@ def build(names: Sequence[str]) -> Dict[str, Path]:
     return paths
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+def load(name: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` built with ``defines``,
+    built first if needed."""
+    key = (name, tuple(defines))
     with _lock:
-        lib = _libs.get(name)
+        lib = _libs.get(key)
         if lib is None:
-            lib = _libs[name] = ctypes.CDLL(str(build([name])[name]))
+            lib = _libs[key] = ctypes.CDLL(
+                str(build([name], defines)[name]))
         return lib
 
 

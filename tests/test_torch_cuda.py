@@ -627,13 +627,138 @@ def test_event_core_kernel_matches_plain(gpu, topo_name, args, name):
         assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
 
 
+@pytest.mark.parametrize("memory", ["shared", "global"])
+@pytest.mark.parametrize("topo_name,args,name", EC_LISTS)
+def test_event_core_both_variants_match_plain(gpu, topo_name, args, name,
+                                              memory):
+    """Each memory variant of the kernel, forced, returns what
+    ``event_core_ref`` returns; so does the scan kernel it replaced."""
+    from repro_torch.core import kernelsim as KS
+
+    _, _, _, stat, durs, _ = _ec_arrays(gpu, topo_name, args, name,
+                                        [4e4, 64e6])
+    want = KS.event_core(*stat, durs)
+    dev = [t.to(gpu) for t in stat]
+    st = KS.compact_structure(*dev)
+    before = KS.variant_launches[memory]
+    got = KS.launch(st, durs.to(gpu), memory=memory)
+    torch.cuda.synchronize()
+    assert KS.variant_launches[memory] == before + 1
+    scan = KS.event_core_scan(*dev, durs.to(gpu))
+    for g, sc, w in zip(got, scan, want):
+        assert torch.equal(g.cpu(), w) and torch.equal(sc.cpu(), w)
+
+
+def test_event_core_profile_build_matches_and_counts(gpu):
+    """The kernel built with ``EC_PROFILE`` returns the kernel's results
+    (``profile`` checks it) and counts one admission a task; every phase
+    took cycles on a list with parks."""
+    from repro_torch.core import kernelsim as KS
+
+    _, _, _, stat, durs, _ = _ec_arrays(gpu, "mesh2d", (16, 16), "srda",
+                                        [64e6])
+    st = KS.compact_structure(*(t.to(gpu) for t in stat))
+    prof = KS.profile(st, durs.to(gpu))
+    n = stat[0].numel()
+    assert prof["counts"]["admissions"] == n
+    assert prof["counts"]["parks"] == prof["counts"]["wake hops"] > 0
+    assert all(v > 0 for v in prof["cycles"].values())
+
+
+def _wide_row(n_free=35):
+    """Task 0 holds resource X; task 1's row is ``n_free`` private
+    resources, then X, so its first full resource lies past lane 31 of the
+    checking warp: it parks there and wakes when task 0 completes. Task 2
+    depends on task 1 and shares one of its private resources."""
+    nres = n_free + 1
+    x = n_free
+    K = n_free + 1
+    res = np.full((3, K), nres, dtype=np.int32)        # nres: the dummy
+    res[0, 0] = x
+    res[1, :] = np.arange(K)                            # ..., then X
+    res[2, 0] = 3
+    caps = np.ones(nres + 1, dtype=np.int32)
+    caps[nres] = 2 ** 30
+    deps = np.full((3, 1), 3, dtype=np.int32)
+    deps[2, 0] = 1
+    rank = np.asarray([0, 1, 2], dtype=np.int32)
+    durs = np.asarray([[5.0, 1.0, 2.0], [1.0, 3.0, 1.0]])
+    return rank, res, caps, deps, durs
+
+
+@pytest.mark.parametrize("memory", ["shared", "global"])
+def test_event_core_first_busy_resource_past_lane_31(gpu, memory):
+    from repro_torch.core import kernelsim as KS
+
+    stat = [torch.from_numpy(a) for a in _wide_row()]
+    want = KS.event_core(*stat)
+    # task 1 waits for task 0: it starts at 5 (lane 0) and 1 (lane 1)
+    assert want[0].tolist() == [[5.0, 6.0, 8.0], [1.0, 4.0, 5.0]]
+    st = KS.compact_structure(*(t.to(gpu) for t in stat[:4]))
+    assert st.row_ptr.tolist() == [0, 1, 37, 38]
+    got = KS.launch(st, stat[4].to(gpu), memory=memory)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_event_core_more_than_1024_running(gpu):
+    """3,000 tasks with private resources and no dependencies all run at
+    once, so the running list outgrows its shared part into the lane's
+    workspace; ties in finish times are broken by sequence numbers."""
+    from repro_torch.core import kernelsim as KS
+
+    n, rng = 3000, np.random.default_rng(5)
+    rank = rng.permutation(n).astype(np.int32)
+    res = np.arange(n, dtype=np.int32)[:, None]
+    caps = np.ones(n, dtype=np.int32)
+    deps = np.full((n, 1), n, dtype=np.int32)
+    durs = rng.integers(1, 4, (2, n)).astype(np.float64)
+    stat = [torch.from_numpy(a) for a in (rank, res, caps, deps, durs)]
+    want = KS.event_core(*stat)
+    st = KS.compact_structure(*(t.to(gpu) for t in stat[:4]))
+    for memory in ("shared", "global"):
+        got = KS.launch(st, stat[4].to(gpu), memory=memory)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("side", [0, 1])
+def test_event_core_both_sides_of_the_shared_memory_threshold(gpu, side):
+    """A random list just small enough for the shared variant and one just
+    too large: ``variant`` picks each, and the kernel equals the scan
+    kernel (itself held to ``event_core_ref`` above) on both."""
+    from repro_torch.core import kernelsim as KS
+
+    lib = KS._kernel()
+    limit, nres = lib.event_core_max_shared(1), 64
+    n = 1024
+    while lib.event_core_shared_bytes(n + 1024, nres, 1) <= limit:
+        n += 1024
+    while lib.event_core_shared_bytes(n + 1, nres, 1) <= limit:
+        n += 1
+    n += side                       # the last n that fits, and one more
+    stat = [torch.from_numpy(a).to(gpu) for a in KS.random_structure(
+        np.random.default_rng(n), n, 2, nres=nres, K=4, D=3)]
+    st = KS.compact_structure(*stat[:4])
+    assert st.caps.numel() == nres      # every resource can block
+    assert KS.variant(n, nres) == ("shared", "global")[side]
+    before = dict(KS.variant_launches)
+    got = KS.event_core(*stat)
+    assert KS.variant_launches[("shared", "global")[side]] == \
+        before[("shared", "global")[side]] + 1
+    want = KS.event_core_scan(*stat)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
 @pytest.mark.parametrize("zero_cap", [False, True])
 @pytest.mark.parametrize("n,lanes", [(1, 1), (40, 3), (333, 5),
                                      (2100, 2)])
 def test_event_core_kernel_random_structures(gpu, n, lanes, zero_cap):
-    """Ties, repeated ids, dummy pads, one and several warps and blocks of
-    1,024 threads with many tasks a thread; with ``zero_cap`` the
-    completion step with ``min(fin)`` inf."""
+    """Ties, repeated ids, dummy pads, one task and lists of up to 2,100;
+    with ``zero_cap`` the completion step with ``min(fin)`` inf, where a
+    done or unstarted task wins the scan of all n keys. The scan kernel
+    agrees too."""
     from repro_torch.core import kernelsim as KS
 
     stat = [torch.from_numpy(a) for a in KS.random_structure(
@@ -641,8 +766,9 @@ def test_event_core_kernel_random_structures(gpu, n, lanes, zero_cap):
         D=3, zero_cap=zero_cap)]
     want = KS.event_core(*stat)
     got = KS.event_core(*(t.to(gpu) for t in stat))
-    for g, w in zip(got, want):
-        assert torch.equal(g.cpu(), w)
+    scan = KS.event_core_scan(*(t.to(gpu) for t in stat))
+    for g, sc, w in zip(got, scan, want):
+        assert torch.equal(g.cpu(), w) and torch.equal(sc.cpu(), w)
 
 
 def test_kernelsim_on_card_matches_numpy_and_batches(gpu, monkeypatch):
@@ -705,9 +831,10 @@ def test_event_core_runs_the_largest_sweep_list(gpu, monkeypatch):
     cm = ConflictModel(topo)
     ctl = lower_baseline(topo, cm, "srda", 0, 64e6)
     assert ctl.n == 53247 and not (ctl.seg is not None and ctl.seg.foldable)
-    before = KS.launches
+    before, glob = KS.launches, KS.variant_launches["global"]
     got = KS.KernelSim(topo, cm, 0).run_lowered(ctl)
     assert KS.launches == before + 1
+    assert KS.variant_launches["global"] == glob + 1
     want = CompiledSim(topo, cm, 0).run_lowered(ctl)
     assert (got.finish_time, got.deliveries, got.node_finish) == \
         (want.finish_time, want.deliveries, want.node_finish)

@@ -346,3 +346,276 @@ def test_make_engine_and_executable_carry_the_device_block():
                            config=SimConfig(device=dev))
     assert exk.predicted_time == exf.predicted_time
     assert exk.verify(exk.default_payload()).ok
+
+
+# --- the CUDA kernel's bookkeeping (csrc/event_core.cu), modelled in numpy --
+
+_WAIT, _READY, _PARKED, _RUN, _DONE = range(5)
+
+
+def _compacted(stat):
+    """``compact_structure`` of numpy inputs, as numpy arrays."""
+    st = KS.compact_structure(*(torch.from_numpy(np.ascontiguousarray(a))
+                                for a in stat[:4]))
+    return KS.Compacted(*(t.numpy() for t in st))
+
+
+class _Bitmap:
+    """The kernel's two-level ready bitmap: a bit a rank in 32-bit words,
+    and a summary bit a word that is not zero."""
+
+    def __init__(self, n):
+        self.nw = (n + 31) // 32
+        self.bits = [0] * self.nw
+        self.sum = [0] * ((self.nw + 31) // 32)
+
+    def set(self, p):
+        p = int(p)
+        w = p >> 5
+        if not self.bits[w]:
+            self.sum[w >> 5] |= 1 << (w & 31)
+        self.bits[w] |= 1 << (p & 31)
+
+    def clear(self, p):
+        p = int(p)
+        w = p >> 5
+        self.bits[w] &= ~(1 << (p & 31))
+        if not self.bits[w]:
+            self.sum[w >> 5] &= ~(1 << (w & 31))
+
+    def first(self):
+        """The least set rank, or -1 (``first_ready``)."""
+        for s, sm in enumerate(self.sum):
+            if sm:
+                w = (s << 5) + _ffs(sm)
+                return (w << 5) + _ffs(self.bits[w])
+        return -1
+
+
+def _ffs(m):
+    return (m & -m).bit_length() - 1
+
+
+def _model_core(st, durs, cands=32):
+    """What one block of ``csrc/event_core.cu`` computes for each lane, step
+    by step: up to ``cands`` least ready ranks (the set bits of the 32
+    words from the first that is not zero) checked against the same room;
+    the least that passes is admitted, those ahead of it park on their
+    first full resource, those behind it are checked again against the
+    room it left, and so on through the window; a completion pops the
+    least running (fin, seq) (a heap here, slots with block minima in the
+    kernel: the same order), wakes every waiter of the freed resources and,
+    on a first completion, drops the children's counts; the scan of all n
+    ``(seq, index)`` keys when nothing runs or the least finish is inf.
+    ``cands=1`` checks one rank at a time."""
+    import heapq
+
+    L, n = durs.shape
+    comp = np.zeros((L, n))
+    seqs = np.full((L, n), int(KS._BIG_SEQ), dtype=np.int64)
+    for lane in range(L):
+        room = st.caps.astype(np.int64)
+        head = [-1] * room.size
+        nxt = [-1] * n
+        depc = st.dep_n.astype(np.int64)
+        status = [_WAIT] * n
+        bm = _Bitmap(n)
+        for p in range(n):
+            if not depc[p]:
+                status[p] = _READY
+                bm.set(p)
+        heap, now, ctr, ncomp = [], 0.0, 0, 0
+
+        def row(p):
+            return st.row_res[st.row_ptr[p]:st.row_ptr[p + 1]]
+
+        def first_full(p):
+            full = [int(r) for r in row(p) if room[r] <= 0]
+            return full[0] if full else -1
+
+        while ncomp < n:
+            while True:                # admissions until none is possible
+                cand, p0 = [], bm.first()
+                if p0 >= 0:
+                    for w in range(p0 >> 5, min((p0 >> 5) + 32, bm.nw)):
+                        cand += [(w << 5) + b for b in range(32)
+                                 if bm.bits[w] >> b & 1]
+                    cand = cand[:cands]
+                if not cand:
+                    break
+                # the window: the least that passes is admitted, those
+                # before it park, the rest are checked again
+                blk = [first_full(p) for p in cand]
+                start = 0
+                while start < len(cand):
+                    a = next((k for k in range(start, len(cand))
+                              if blk[k] < 0), len(cand))
+                    for p, r in zip(cand[start:a], blk[start:a]):
+                        bm.clear(p)
+                        status[p] = _PARKED
+                        nxt[p], head[r] = head[r], p
+                    if a == len(cand):
+                        break
+                    p = cand[a]
+                    np.subtract.at(room, row(p), 1)
+                    bm.clear(p)
+                    status[p] = _RUN
+                    t = int(st.inv[p])
+                    heapq.heappush(heap, (now + durs[lane, t], ctr, p))
+                    seqs[lane, t] = ctr
+                    ctr += 1
+                    start = a + 1
+                    blk[start:] = [first_full(q) for q in cand[start:]]
+            if heap and heap[0][0] != np.inf:
+                m, _, j = heapq.heappop(heap)
+            else:
+                t = int(np.lexsort((np.arange(n), seqs[lane]))[0])
+                j, m = int(st.rank[t]), np.inf
+                if status[j] == _RUN:
+                    assert heap[0][2] == j
+                    heapq.heappop(heap)
+            now = m
+            comp[lane, st.inv[j]] = m
+            first = status[j] != _DONE
+            if status[j] == _READY:
+                bm.clear(j)
+            status[j] = _DONE
+            ncomp += 1
+            np.add.at(room, row(j), 1)
+            for r in row(j):
+                t, head[r] = head[r], -1
+                while t >= 0:
+                    if status[t] == _PARKED:
+                        status[t] = _READY
+                        bm.set(t)
+                    t = nxt[t]
+            if first:
+                for c in st.ch[st.ch_ptr[j]:st.ch_ptr[j + 1]]:
+                    depc[c] -= 1
+                    if not depc[c] and status[c] == _WAIT:
+                        status[c] = _READY
+                        bm.set(c)
+    return comp, seqs.astype(np.int32)
+
+
+def _naive_compaction(rank, res, caps, deps):
+    """``compact_structure`` with loops, for the test."""
+    n = rank.size
+    occ = np.zeros(caps.size, dtype=np.int64)
+    for r in res.reshape(-1):
+        occ[r] += 1
+    kept = [r for r in range(caps.size) if caps[r] <= occ[r]]
+    new = {r: k for k, r in enumerate(kept)}
+    inv = np.argsort(rank)
+    rows = [[new[r] for r in res[t] if r in new] for t in inv]
+    children = [[] for _ in range(n)]
+    for t in range(n):
+        for d in deps[t]:
+            if d != n:
+                children[rank[d]].append(int(rank[t]))
+    return inv, rows, caps[kept], [int((deps[t] != n).sum()) for t in inv], \
+        children
+
+
+def _structures():
+    """Random structures (ties, repeats, pads at random positions, caps 1
+    and 2, a zero capacity, empty rows) and a few lowered lists."""
+    out = []
+    for seed, zero_cap in ((0, False), (1, True), (2, False), (3, True)):
+        rng = np.random.default_rng(seed)
+        n = (40, 97, 200, 333)[seed]
+        out.append((f"random-{seed}-{zero_cap}", KS.random_structure(
+            rng, n, 3, nres=max(2, n // 8), K=5, D=3, zero_cap=zero_cap)))
+    return out
+
+
+@pytest.mark.parametrize("case", range(4))
+def test_compaction_keeps_the_entries_that_can_block(case):
+    """Every entry of a resource whose capacity is at most its count of
+    occurrences stays, in row order and with its multiplicity; every other
+    goes; ranks, dependency counts and children match the padded input."""
+    name, stat = _structures()[case]
+    rank, res, caps, deps = stat[:4]
+    st = _compacted(stat)
+    inv, rows, kcaps, dep_n, children = _naive_compaction(rank, res, caps,
+                                                          deps)
+    np.testing.assert_array_equal(st.inv, inv)
+    np.testing.assert_array_equal(st.caps, kcaps)
+    np.testing.assert_array_equal(st.dep_n, dep_n)
+    for p in range(rank.size):
+        assert st.row_res[st.row_ptr[p]:st.row_ptr[p + 1]].tolist() == rows[p]
+        assert sorted(st.ch[st.ch_ptr[p]:st.ch_ptr[p + 1]].tolist()) == \
+            sorted(children[p])
+    # the dummy pad never stays, a zero capacity always does where used
+    assert caps.size - 1 not in np.nonzero(caps <= np.bincount(
+        res.reshape(-1), minlength=caps.size))[0]
+    if caps[0] == 0 and (res == 0).any():
+        assert st.caps[0] == 0
+    assert st.row_ptr[-1] == st.row_res.size < res.size
+
+
+@pytest.mark.parametrize("tname,mk,mode", TOPOS, ids=[t[0] for t in TOPOS])
+def test_compaction_of_lowered_lists(tname, mk, mode):
+    """The matrix lists (64e6 B): the compacted rows are the padded rows
+    without the dummy and without resources too wide to block, and the
+    children CSR is the inverse of the dependency rows."""
+    topo = mk(T)
+    cm = ConflictModel(topo, mode)
+    for name in NAMES:
+        ctl = lower_baseline(topo, cm, name, 0, 64e6)
+        if ctl.seg is not None and ctl.seg.foldable:
+            continue
+        ctl.bind(cm.compiled())
+        stat = KS._static_arrays(ctl, cm.compiled())
+        st = _compacted(stat)
+        inv, rows, kcaps, dep_n, children = _naive_compaction(*stat)
+        np.testing.assert_array_equal(st.caps, kcaps)
+        np.testing.assert_array_equal(st.dep_n, dep_n)
+        assert [st.row_res[st.row_ptr[p]:st.row_ptr[p + 1]].tolist()
+                for p in range(ctl.n)] == rows
+        assert [sorted(st.ch[st.ch_ptr[p]:st.ch_ptr[p + 1]].tolist())
+                for p in range(ctl.n)] == [sorted(c) for c in children]
+        assert st.row_res.size <= stat[1].size
+
+
+@pytest.mark.parametrize("cands", [1, 32])
+@pytest.mark.parametrize("case", range(4))
+def test_kernel_model_matches_plain_core_on_random_structures(case, cands):
+    """The kernel's bookkeeping, in numpy, against ``event_core_ref`` bit
+    for bit: zero capacities (where nothing runs and a done or
+    unstarted task wins the scan of all n keys), ties, repeats, pads."""
+    name, stat = _structures()[case]
+    want = KS.event_core(*(torch.from_numpy(a) for a in stat))
+    comp, seqs = _model_core(_compacted(stat), stat[4], cands)
+    np.testing.assert_array_equal(comp, want[0].numpy())
+    np.testing.assert_array_equal(seqs, want[1].numpy())
+    if "True" in name:
+        assert np.isinf(comp).any()
+
+
+@pytest.mark.parametrize("tname,mk,mode", TOPOS, ids=[t[0] for t in TOPOS])
+@pytest.mark.parametrize("size", [4e4, 64e6])
+def test_kernel_model_matches_numpy_engine_on_matrix_lists(tname, mk, mode,
+                                                           size):
+    """The kernel's bookkeeping on the ``tests/test_kernel.py`` lists: its
+    completion times and sequence numbers are ``event_core_ref``'s and give
+    every ``SimResult`` field of the numpy engine; one candidate at a time
+    gives the same."""
+    topo = mk(T)
+    cm = ConflictModel(topo, mode)
+    ks = _sim(topo, cm)
+    for name in NAMES:
+        ctl = lower_baseline(topo, cm, name, 0, size)
+        if ctl.seg is not None and ctl.seg.foldable:
+            continue
+        ctl.bind(cm.compiled())
+        stat = KS._static_arrays(ctl, cm.compiled())
+        st = _compacted(stat)
+        durs = np.asarray([ctl.durs], dtype=np.float64)
+        comp, seqs = _model_core(st, durs, cands=1 if size < 1e6 else 32)
+        want = KS.event_core_ref(*(torch.from_numpy(a) for a in stat),
+                                 torch.from_numpy(durs))
+        np.testing.assert_array_equal(comp, want[0].numpy())
+        np.testing.assert_array_equal(seqs, want[1].numpy())
+        got = ks._postprocess(ctl, comp[0], seqs[0].astype(np.int64))
+        assert _same(got, CompiledSim(topo, cm, 0).run_lowered(ctl)), name
