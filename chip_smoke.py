@@ -108,12 +108,36 @@ Phases, each of which exits non-zero on failure:
    of the bound, the plain version and ``scaled_dot_product_attention`` as
    the library yardstick (timed both ways here only; the port never calls
    it) and K2's ratio to it; K2 at zamba2-7b's head dim 112 beside SDPA;
-   the float32 FMA kernel once at the same shape; prefill time, decode time
+   the float32 FMA kernel once at the same shape; K2 at the other
+   families' shapes (llava-next-mistral-7b's causal (4, 32, 16, 2304, 2304,
+   128); seamless-m4t-large-v2's non-causal (4, 16, 16, S, 2048, 64) for
+   S = 2048 and S = 1) beside SDPA and its bound; prefill time, decode time
    after a 4 x 2048 prefill, serve's tokens/s; a ``torch.profiler`` window
-   over one dense prefill and the four decode steps after it.
+   over one dense prefill and the four decode steps after it;
+15-18. the serving paths of the other four families at full width (random
+   weights from seed 0), one model at a time, each freed before the next
+   (``phase_family``): llava-next-mistral-7b (vlm: 256 patches before the
+   tokens), granite-moe-1b-a400m (moe), zamba2-7b (hybrid) and
+   seamless-m4t-large-v2 (encdec: 2048 frames beside the tokens).
+   ``LM.prefill`` of 4 x 2048 ``SyntheticTokens`` with exactly the K2 and
+   K3 launches of ``FAMILIES`` and none of K1 or EC, finite logits, the
+   cache filled; K2 and K3 against their plain versions on the first and
+   the last launch of each kind; the bf16 prefill within twice bf16's own
+   distance from a float32 twin (zamba2-7b's twin cut to 12 of its 81
+   blocks, and the bf16 model with it); teacher-forced ``decode_step``
+   against ``forward`` over 4 x 64 tokens in both dtypes (the moe on twins
+   whose capacity drops no token); for vlm, moe and encdec a decode step
+   after a ``prefill``-filled cache against ``forward``; prefill time (min
+   of 2), decode time a step, peak memory, a ``torch.profiler`` window
+   over one prefill and over two decode steps; ``serve.main --arch <id>
+   --prompt-len 8 --tokens 16``. Phases 12 and 9 hold K2 and K3 at these
+   models' new shapes (K2 non-causal at S = 2048 and S = 1 against
+   T = 2048, K2 at llava's 2304, K3 at zamba2-7b's (4, 2048, 56, 128,
+   64)).
 
 The last lines are one JSON line with the calibration readings, one with
-the distributed phase's (null on one GPU), the card
+the distributed phase's (null on one GPU), one with the families' readings,
+the card
 (``nvidia-smi`` name and power limit), one JSON line with every kernel, and
 ``{"ok": true, "device": {...}}``. Without a
 GPU, or without the repo beside it, it exits non-zero and prints no result.
@@ -142,6 +166,19 @@ SSD_MAIN = (4, 2048, 32, 64, 128, 128)
 ATTN_MAIN = (4, 32, 16, 2048, 2048, 128)
 # zamba2-7b's shared attention at a 4 x 2048 prefill (32 heads of 112)
 ZAMBA_ATTN = (4, 32, 32, 2048, 2048, 112)
+# K2 at the other families' shapes (B, Hq, Hkv, S, T, D, causal): the
+# llava-next-mistral-7b prefill (256 patches + 2048 tokens), and
+# seamless-m4t-large-v2's non-causal attention (its encoder, its
+# cross-attention at a 4 x 2048 prefill, and its decode's cross-attention,
+# one query row against the 2048 encoder states)
+NEW_ATTN = (("llava-next-mistral-7b prefill", (4, 32, 16, 2304, 2304, 128),
+             True),
+            ("seamless-m4t-large-v2 encoder / cross-attention",
+             (4, 16, 16, 2048, 2048, 64), False),
+            ("seamless-m4t-large-v2 decode cross-attention",
+             (4, 16, 16, 1, 2048, 64), False))
+# K3 at the zamba2-7b prefill: batch, sequence, heads, head dim, state
+ZAMBA_SSD = (4, 2048, 56, 128, 64)
 # the calibration cells: ring 8 at 4 MiB with the reference bench cell's
 # ladder, iters and reps (benchmarks/simbench.py, device_collective); mesh2d
 # 16 x 16 at 16 MiB from root 255 (root 0's orbit) at the default ladder
@@ -1218,6 +1255,14 @@ def phase_ssd_vs_plain(torch, K, ref):
                 ref.ssd_chunked(*args, chunk=c_), BF16_TOL,
                 f"s={s_} dh={dh_} ds={ds_} chunk {c_} (chunk_of "
                 f"{K.chunk_of(s_, c_)}) bf16")
+    # zamba2-7b's prefill: 56 heads of 128, state 64 (ssd_tc<128, 64>, one
+    # block an SM; float32 on ssd_fma)
+    for dtype, tol in ((bf, BF16_TOL), (f32, F32_TOL)):
+        args = ssd_inputs(torch, *ZAMBA_SSD, dtype, 9)
+        compare(torch, K.ssd_scan(*args, chunk=chunk),
+                ref.ssd_chunked(*args, chunk=chunk), tol,
+                f"zamba2-7b prefill shape {ZAMBA_SSD} {dtype}")
+        del args
     # many waves of items: 4 x 32 x 32 = 4,096 (b, h, chunk) items
     args = ssd_inputs(torch, b, 4096, h, dh, ds, bf, 7)
     got = K.ssd_scan(*args, chunk=chunk)
@@ -1346,11 +1391,20 @@ def phase_prefill(torch, K, rs, ref, ops, cfg, LM, SyntheticTokens):
                             err32=err32, layer_err=layer_err)
 
 
-def decode_vs_forward(torch, model, tokens, what, **rule):
-    full = model.forward(dict(tokens=tokens))
-    cache = model.init_cache(tokens.shape[0], tokens.shape[1])
+def decode_vs_forward(torch, model, batch, what, **rule):
+    """Teacher-forced ``decode_step`` over ``batch["tokens"]`` against
+    ``forward(batch)``; an encdec's cache attends to its encoder's pass over
+    ``batch["frames"]``, as the serve loop's does."""
+    tokens = batch["tokens"].cuda()
+    full = model.forward(batch)
+    b, s = tokens.shape
+    frames = batch.get("frames")
+    cache = model.init_cache(b, s, enc_len=0 if frames is None else
+                             frames.shape[1])
+    if frames is not None:
+        cache["enc"] = model._encoder(frames)
     steps = torch.empty_like(full)
-    for t in range(tokens.shape[1]):
+    for t in range(s):
         steps[:, t] = model.decode_step(cache, tokens[:, t:t + 1])[0][:, 0]
     return logits_err(torch, steps, full, what, **rule), full
 
@@ -1362,25 +1416,26 @@ def phase_decode(torch, model, f32, cfg, SyntheticTokens):
     toks = SyntheticTokens(cfg, seq_len=256, global_batch=4).batch(1)
     toks = toks["tokens"].cuda()
     err32, full32 = decode_vs_forward(
-        torch, f32, toks, f"decode_step vs forward, 4x256, float32, "
-        f"{cfg.layers} layers", tol=F32_MODEL_TOL)
+        torch, f32, dict(tokens=toks), f"decode_step vs forward, 4x256, "
+        f"float32, {cfg.layers} layers", tol=F32_MODEL_TOL)
     full16 = model.forward(dict(tokens=toks))
     noise = logits_err(torch, full16, full32, "forward 4x256 bf16 vs "
                        "float32 (bf16's own error)")
     del full16, full32
-    err, _ = decode_vs_forward(torch, model, toks, f"decode_step vs forward, "
+    err, _ = decode_vs_forward(torch, model, dict(tokens=toks),
+                               f"decode_step vs forward, "
                                f"4x256, bf16, {cfg.layers} layers",
                                bound=2 * noise)
     return err, err32, noise
 
 
-def phase_serve(torch, serve, cfg):
+def phase_serve(torch, serve, cfg, tokens=32, prompt=32):
     gen = serve.main(["--arch", cfg.name, "--batch", "4",
-                      "--prompt-len", "32", "--tokens", "32"])
-    if tuple(gen.shape) != (4, 32) or gen.dtype != torch.int32 or \
+                      "--prompt-len", str(prompt), "--tokens", str(tokens)])
+    if tuple(gen.shape) != (4, tokens) or gen.dtype != torch.int32 or \
             int(gen.min()) < 0 or int(gen.max()) >= cfg.padded_vocab:
         fail(f"serve returned {gen.dtype} {tuple(gen.shape)} tokens")
-    log(f"[serve] serve.main --arch {cfg.name}: (4, 32) greedy tokens; "
+    log(f"[serve] serve.main --arch {cfg.name}: (4, {tokens}) greedy tokens; "
         f"first row "
         f"{gen[0, :8].tolist()}")
 
@@ -1392,7 +1447,8 @@ def phase_ssd_timing(torch, K, ref, rate):
     the wrapper's host time per call (20 calls issued back to back); its
     bound (the function's bytes and FLOP, full C B^T and W x tiles, not the
     split's extra products), TFLOP/s and share of the bound on those FLOP;
-    the plain version; then the float32 FMA kernel once at the same
+    the plain version; then zamba2-7b's shape in bf16 (an eager loop of 20)
+    against its bound, and the float32 FMA kernel once at the prefill
     shape."""
     b, s, h, dh, ds, chunk = SSD_MAIN
     args = ssd_inputs(torch, b, s, h, dh, ds, torch.bfloat16, 6)
@@ -1428,6 +1484,21 @@ def phase_ssd_timing(torch, K, ref, rate):
         f"of its bound; plain {plain_ms!r} ms; library: none (no single "
         f"PyTorch call computes the SSD scan)")
     del args, y
+    # zamba2-7b's shape: 56 heads of 128, state 64 (one block an SM)
+    zb, zs, zh, zdh, zds = ZAMBA_SSD
+    args = ssd_inputs(torch, *ZAMBA_SSD, torch.bfloat16, 10)
+    z_bytes = sum(t.numel() * t.element_size() for t in args) + \
+        args[0].numel() * args[0].element_size()
+    z_flops = zb * zh * -(-zs // chunk) * (2 * chunk * chunk * (zds + zdh) +
+                                           4 * chunk * zds * zdh)
+    z_bound = max(z_bytes / rate, z_flops / BF16_PEAK) * 1e3
+    z_ms = min(cuda_ms(lambda: [K.ssd_scan(*args, chunk=chunk)
+                                for _ in range(reps)])
+               for _ in range(2)) / reps
+    log(f"[timing] ssd_scan at zamba2-7b's {ZAMBA_SSD}, bf16: {z_ms!r} ms "
+        f"per launch (eager loop of {reps}), bound {z_bound!r} ms "
+        f"({z_bytes} B, {z_flops} FLOP), {z_bound / z_ms!r} of it")
+    del args
     args = ssd_inputs(torch, b, s, h, dh, ds, torch.float32, 6)
     f32_ms = min(cuda_ms(lambda: K.ssd_scan(*args, chunk=chunk))
                  for _ in range(2))
@@ -1438,7 +1509,7 @@ def phase_ssd_timing(torch, K, ref, rate):
     return dict(ms=kernel_ms, graph_ms=kernel_graph_ms, host_ms=host_ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 tflops=tflops, share_of_bound=bound_ms / kernel_ms,
-                f32_ms=f32_ms)
+                f32_ms=f32_ms, zamba2=dict(ms=z_ms, bound_ms=z_bound))
 
 
 def phase_decode_timing(torch, model, serve, SyntheticTokens, cfg):
@@ -1455,7 +1526,7 @@ def phase_decode_timing(torch, model, serve, SyntheticTokens, cfg):
                                for _ in range(n)]) / n
     del cache
     toks = SyntheticTokens(cfg, seq_len=32, global_batch=4).batch(2)
-    res = serve.generate(model, toks["tokens"], 32)
+    res = serve.generate(model, toks, 32)
     log(f"[timing] {cfg.name} decode_step, batch 4, after a {b}x{s} "
         f"prefill: {step_ms!r} ms per step (eager); "
         f"serve loop (prompt 32, 32 new tokens, batch 4): fill "
@@ -1549,6 +1620,10 @@ def phase_attn_vs_plain(torch, FA, ref):
               True),
              ("ragged S=T=300 D 112 non-causal bf16", (2, 8, 4, 300, 300,
                                                        112), bf, False)]
+    cases += [(f"{what} {shape} {'causal' if causal else 'non-causal'} "
+               f"{name}", shape, dtype, causal)
+              for what, shape, causal in NEW_ATTN
+              for name, dtype in (("bf16", bf), ("float32", f32))]
     main_err = None
     for i, (what, shape, dtype, causal) in enumerate(cases):
         args = attn_inputs(torch, *shape, dtype, 20 + i)
@@ -1812,6 +1887,28 @@ def phase_attn_timing(torch, FA, ref, rate):
         f"{z_flops / BF16_PEAK * 1e3!r} ms (operations); "
         f"scaled_dot_product_attention {z_sdpa!r} ms (yardstick)")
     del args
+    new = {}
+    for i, (what, shape, causal) in enumerate(NEW_ATTN):
+        args = attn_inputs(torch, *shape, torch.bfloat16, 43 + i)
+        nb, nhq, nhkv, ns, nt, nd = shape
+        n_flops = 4 * nd * nb * nhq * attn_pairs(ns, nt, causal)
+        n_bytes = sum(x.numel() * x.element_size() for x in args) + \
+            args[0].numel() * args[0].element_size()
+        n_bound = max(n_bytes / rate, n_flops / BF16_PEAK) * 1e3
+        n_by = "bytes" if n_bytes / rate >= n_flops / BF16_PEAK else \
+            "operations"
+        n_ms = eager_ms(lambda: FA.flash_attention(*args, causal=causal))
+        n_sdpa = eager_ms(lambda: sdpa(*args, is_causal=causal,
+                                       enable_gqa=nhq != nhkv))
+        log(f"[timing] flash_attention at {what} {shape}, bf16, "
+            f"{'causal' if causal else 'non-causal'}: {n_ms!r} ms per launch "
+            f"(eager loop of {reps}), {n_flops / n_ms / 1e9!r} TFLOP/s, "
+            f"bound {n_bound!r} ms ({n_by}: {n_flops} FLOP, {n_bytes} B), "
+            f"{n_bound / n_ms!r} of it; scaled_dot_product_attention "
+            f"{n_sdpa!r} ms (yardstick), {n_ms / n_sdpa!r} times its time")
+        new[what] = dict(shape=list(shape), causal=causal, ms=n_ms,
+                         library_ms=n_sdpa, bound_ms=n_bound, bound_by=n_by)
+        del args
     args = attn_inputs(torch, *ATTN_MAIN, torch.float32, 41)
     f32_ms = min(cuda_ms(lambda: FA.flash_attention(*args))
                  for _ in range(2))
@@ -1825,7 +1922,270 @@ def phase_attn_timing(torch, FA, ref, rate):
     return dict(ms=kernel_ms, graph_ms=kernel_graph_ms, host_ms=host_ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=library_ms, library_graph_ms=library_graph_ms,
-                f32_ms=f32_ms, d112_ms=z_ms)
+                f32_ms=f32_ms, d112_ms=z_ms, new_shapes=new)
+
+
+# the families' full-width serving phases: arch, K2 and K3 launches a
+# 4 x 2048 prefill (from the configs and padded_heads), and the depth of the
+# float32 twin (None: the full depth). zamba2-7b's twin keeps 12 of its 81
+# Mamba-2 blocks (two shared-attention periods): 8.7 B float32 parameters
+# would not fit beside the bf16 model.
+FAMILIES = (("llava-next-mistral-7b", 32, 0, None),
+            ("granite-moe-1b-a400m", 24, 0, None),
+            ("zamba2-7b", 13, 81, 12),
+            ("seamless-m4t-large-v2", 72, 0, None))
+FAMILY_BATCH, FAMILY_SEQ = 4, 2048
+FAMILY_DECODE = 64          # teacher-forced decode against forward, 4 x 64
+FAMILY_SERVE = 16           # serve.main --tokens
+FAMILY_PROMPT = 8           # serve.main --prompt-len
+_STACKED = ("mamba.", "attn.", "mlp.", "moe.", "cross.")
+
+
+def twin(LM, model, cfg, layers=None, **kw):
+    """``LM(cfg.scaled(**kw))`` with ``model``'s weights (widened or narrowed
+    to its dtype); with ``layers``, the first ``layers`` decoder (or Mamba-2)
+    blocks only: a cut in depth."""
+    cfg = cfg.scaled(**kw) if layers is None else \
+        cfg.scaled(layers=layers, **kw)
+    out = LM(cfg)
+    state = {k: (v[:layers] if layers is not None and
+                 k.startswith(_STACKED) else v)
+             for k, v in model.state_dict().items()}
+    out.load_state_dict(state)
+    return out
+
+
+def family_batch(SyntheticTokens, cfg, seq, step, patches=True):
+    """``SyntheticTokens`` step ``step`` on the card; a vlm's patches only
+    with ``patches`` (decode has no patch path)."""
+    batch = SyntheticTokens(cfg, seq_len=seq,
+                            global_batch=FAMILY_BATCH).batch(step)
+    if not patches:
+        batch.pop("patches", None)
+    return {k: v.cuda() for k, v in batch.items()}
+
+
+def positions_of(cfg, batch):
+    """Cache positions a prefill of ``batch`` takes: a vlm's patches
+    count."""
+    n = batch["tokens"].shape[1]
+    return n + (batch["patches"].shape[1] if "patches" in batch else 0)
+
+
+def fresh_cache(model, batch, extra=0):
+    frames = batch.get("frames")
+    return model.init_cache(FAMILY_BATCH, positions_of(model.cfg, batch) +
+                            extra, enc_len=0 if frames is None else
+                            frames.shape[1])
+
+
+def kernels_vs_plain(torch, FA, K, ref, ops, model, batch, what):
+    """``model.forward(batch)`` with K2 and K3 each held against its plain
+    version on the inputs of the first and of the last launch of each kind
+    (K2: causal or not, and its S and T; K3: one kind). Returns the max
+    abs error by kind and the number of launches checked."""
+    errs, last, seen = {}, {}, {}
+
+    def check(kind, out, plain, args):
+        errs[kind] = max(errs.get(kind, 0.0), compare(
+            torch, out, plain(*args), BF16_TOL, f"{what} {kind}",
+            quiet=True, tag="lm"))
+
+    def attention(q, k, v, causal=True):
+        o = real_attn(q, k, v, causal=causal)
+        kind = (f"flash_attention {'causal' if causal else 'non-causal'} "
+                f"S={q.shape[2]} T={k.shape[2]}")
+        def plain(*a):
+            return ref.attention_ref(*a, causal=causal)
+        if kind not in seen:
+            check(kind, o, plain, (q, k, v))
+        seen[kind] = seen.get(kind, 0) + 1
+        last[kind] = (o, plain, (q, k, v))
+        return o
+
+    def ssd(x, dt, A, B, C):
+        y = real_ssd(x, dt, A, B, C)
+        kind = "ssd_scan"
+        if kind not in seen:
+            check(kind, y, ref.ssd_chunked, (x, dt, A, B, C))
+        seen[kind] = seen.get(kind, 0) + 1
+        last[kind] = (y, ref.ssd_chunked, (x, dt, A, B, C))
+        return y
+
+    real_attn, real_ssd = ops.attention, ops.ssd
+    ops.attention, ops.ssd = attention, ssd
+    try:
+        model.forward(batch)
+    finally:
+        ops.attention, ops.ssd = real_attn, real_ssd
+    for kind, (out, plain, args) in last.items():
+        if seen[kind] > 1:
+            check(kind, out, plain, args)
+    for kind in sorted(seen):
+        log(f"[{what}] {kind}: {seen[kind]} launches in forward; the first "
+            f"and the last held against the plain version: max_abs_err "
+            f"{errs[kind]!r} (tolerance {BF16_TOL} abs + {BF16_TOL} rel)")
+    return errs
+
+
+def phase_family(torch, FA, K, KS, rs, ref, ops, serve, cfg, LM,
+                 SyntheticTokens, k2, k3, twin_layers, name):
+    """One family's serving path at full width (random weights from seed
+    0): ``LM.prefill`` of 4 x 2048 ``SyntheticTokens`` (a vlm's 256 patches
+    before them, an encdec's 2048 frames beside them) with exactly ``k2``
+    K2 and ``k3`` K3 launches and none of K1 or EC, finite logits, the
+    cache filled; K2 and K3 against their plain versions on the first and
+    last launch of each kind; the bf16 prefill within twice bf16's own
+    distance from a float32 twin (cut in depth to ``twin_layers``), and
+    the twin's K2/K3 prefill against its plain one; teacher-forced
+    ``decode_step`` against ``forward`` over 4 x 64 tokens in both dtypes
+    (a moe on twins whose capacity factor E / k drops no token: capacity
+    depends on the sequence length, so S = 1 and S = 2048 route apart at
+    the default factor); for vlm, moe and encdec a decode step after a
+    ``prefill``-filled cache against ``forward`` on one more token; and
+    ``serve.main --arch <id> --prompt-len 8 --tokens 16``; prefill and
+    decode time, peak memory and a profile of each. Returns the
+    readings."""
+    t0 = time.perf_counter()
+    tag = cfg.name
+    b, s = FAMILY_BATCH, FAMILY_SEQ
+    model = LM(cfg)
+    params = sum(p.numel() for p in model.parameters())
+    batch = family_batch(SyntheticTokens, cfg, s, 0)
+    n = positions_of(cfg, batch)
+    cache = fresh_cache(model, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    FA.launches = K.launches = rs.launches = rs.rounds_launches = 0
+    KS.launches = KS.scan_launches = 0
+    logits, cache = model.prefill(batch, cache)
+    torch.cuda.synchronize()
+    got = (FA.launches, K.launches, rs.launches, rs.rounds_launches,
+           KS.launches, KS.scan_launches)
+    peak = torch.cuda.max_memory_allocated()
+    if got != (k2, k3, 0, 0, 0, 0):
+        fail(f"{tag} prefill launched flash_attention, ssd_scan, "
+             f"permute_step, permute_rounds, event_core and event_core_scan "
+             f"{got} times, expected {(k2, k3, 0, 0, 0, 0)}")
+    want_shape = (b, n, cfg.padded_vocab)
+    if tuple(logits.shape) != want_shape:
+        fail(f"{tag} prefill logits {tuple(logits.shape)}, expected "
+             f"{want_shape}")
+    if not all(bool(torch.isfinite(logits[i]).all()) for i in range(b)):
+        fail(f"{tag} prefill logits are not finite")
+    if "k" in cache and cfg.family != "hybrid" and (
+            int(cache["pos"]) != n or not bool(cache["k"][:, :, :, n - 1]
+                                               .any())):
+        fail(f"{tag}: the prefill did not fill the k/v cache")
+    if cfg.family == "encdec" and not bool(cache["enc"].any()):
+        fail(f"{tag}: the prefill did not write the encoder's states")
+    ms = min(cuda_ms(lambda: model.prefill(batch, cache)) for _ in range(2))
+    log(f"[{tag}] {params} parameters; prefill {b}x{s}"
+        f"{f' + {n - s} patches' if n > s else ''}"
+        f"{f' and {b}x{s} frames' if 'frames' in batch else ''}: "
+        f"{k2} flash_attention and {k3} ssd_scan launches (none of K1 or "
+        f"EC), finite logits {want_shape}; {ms!r} ms (CUDA events, min of "
+        f"2), peak memory {peak} B ({name})")
+    del cache
+    errs = kernels_vs_plain(torch, FA, K, ref, ops, model, batch, tag)
+
+    # the float32 twin, and the bf16 model at the twin's depth
+    cut = twin_layers is not None
+    m16 = twin(LM, model, cfg, twin_layers) if cut else model
+    f32 = twin(LM, model, cfg, twin_layers, dtype="float32")
+    depth = f"{m16.cfg.layers} of {cfg.layers} layers" if cut else \
+        f"{cfg.layers} layers"
+    log(f"[{tag}] float32 twin: {depth}" + (
+        " (cut in depth only: the bf16 model is cut alike for the "
+        "comparisons against it)" if cut else ""))
+    if cut:
+        logits = m16.forward(batch)
+    with attention_as(ops, ref.attention_ref), ssd_as(ops, ref.ssd_chunked):
+        plain32 = f32.forward(batch)
+        plain16 = m16.forward(batch)
+    got32 = f32.forward(batch)
+    err32 = logits_err(torch, got32, plain32, f"{tag} prefill float32 "
+                       f"({depth}): kernels vs plain", tol=F32_MODEL_TOL)
+    del got32
+    noise = logits_err(torch, plain16, plain32, f"{tag} prefill ({depth}): "
+                       f"plain bf16 vs float32 (bf16's own error)")
+    err = logits_err(torch, logits, plain16, f"{tag} prefill bf16 "
+                     f"({depth}): kernels vs plain", bound=2 * noise)
+    del logits, plain16, plain32
+    torch.cuda.empty_cache()
+
+    # decode against forward (a moe's on twins that drop no token)
+    if cfg.family == "moe":
+        nd = dict(capacity_factor=cfg.num_experts / cfg.top_k)
+        m16 = twin(LM, model, cfg, **nd)
+        f32 = twin(LM, f32, cfg, dtype="float32", **nd)
+        cap = max(1, int(cfg.capacity_factor * s * cfg.top_k /
+                         cfg.num_experts))
+        log(f"[{tag}] decode checks on twins with capacity factor "
+            f"{nd['capacity_factor']} (E / k: no token dropped at any "
+            f"length); at the default {cfg.capacity_factor} a prefill's "
+            f"capacity {cap} and decode's 1 route a dropped token apart by "
+            f"design")
+    dbatch = family_batch(SyntheticTokens, cfg, FAMILY_DECODE, 1,
+                          patches=False)
+    steps = f"{b}x{FAMILY_DECODE}"
+    err_d32, full32 = decode_vs_forward(
+        torch, f32, dbatch, f"{tag} decode_step vs forward, {steps}, "
+        f"float32 ({depth})", tol=F32_MODEL_TOL)
+    full16 = m16.forward(dbatch)
+    dnoise = logits_err(torch, full16, full32, f"{tag} forward {steps} bf16 "
+                        f"vs float32 (bf16's own error)")
+    del full16, full32
+    err_d, _ = decode_vs_forward(torch, m16, dbatch, f"{tag} decode_step vs "
+                                 f"forward, {steps}, bf16 ({depth})",
+                                 bound=2 * dnoise)
+    if cfg.family != "hybrid":
+        # prefill FAMILY_DECODE tokens (a vlm's patches before them), then
+        # decode one more; forward over all of them
+        pbatch = family_batch(SyntheticTokens, cfg, FAMILY_DECODE + 1, 2)
+        head = dict(pbatch, tokens=pbatch["tokens"][:, :-1])
+        for m, dt, rule in ((f32, "float32", dict(tol=F32_MODEL_TOL)),
+                            (m16, "bf16", dict(bound=2 * dnoise))):
+            c = fresh_cache(m, pbatch)
+            m.prefill(head, c)
+            step = m.decode_step(c, pbatch["tokens"][:, -1:])[0]
+            want = m.forward(pbatch)[:, -1:]
+            logits_err(torch, step, want, f"{tag} decode_step after "
+                       f"prefill({positions_of(cfg, head)} positions) vs "
+                       f"forward at the next, {dt}", **rule)
+            del c
+    del m16, f32
+    torch.cuda.empty_cache()
+
+    # a profile of the prefill, decode time after it, a profile of four
+    # decode steps, then serve
+    cache = fresh_cache(model, batch, extra=16)
+    kinds, busy, wall = profile_window(
+        torch, lambda: model.prefill(batch, cache), f"{tag} prefill {b}x{s}")
+    cur = batch["tokens"][:, :1]
+    model.decode_step(cache, cur)
+    reps = 8
+    step_ms = cuda_ms(lambda: [model.decode_step(cache, cur)
+                               for _ in range(reps)]) / reps
+    log(f"[{tag}] decode_step, batch {b}, after the {b}x{n} prefill: "
+        f"{step_ms!r} ms per step (eager, {reps} steps; {name})")
+    _, dbusy, dwall = profile_window(
+        torch, lambda: [model.decode_step(cache, cur) for _ in range(2)],
+        f"{tag} 2 decode steps after the prefill, batch {b}")
+    del cache, model, batch
+    torch.cuda.empty_cache()
+    phase_serve(torch, serve, cfg, tokens=FAMILY_SERVE,
+                prompt=FAMILY_PROMPT)
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t0
+    log(f"[{tag}] phase time {secs:.3f} s")
+    return dict(params=params, k2=k2, k3=k3, prefill_ms=ms, peak=peak,
+                decode_ms=step_ms, prefill_busy_share=busy / wall,
+                prefill_kernel_ms={k: v / 1e3 for k, v in kinds.items()},
+                decode_busy_share=dbusy / dwall, err=err, err32=err32,
+                layer_errs=errs,
+                decode_err=err_d, decode_err32=err_d32, twin_layers=(
+                    twin_layers or cfg.layers), secs=secs)
 
 
 def main():
@@ -1963,6 +2323,21 @@ def main():
         f"{dpf['ms']!r} ms ({4 * 2048 / dpf['ms'] * 1e3!r} tokens/s), peak "
         f"{dpf['peak']} B; decode {ddec['step_ms']!r} ms per step; serve "
         f"{ddec['tok_per_s']!r} tok/s")
+    del dense
+    torch.cuda.empty_cache()
+
+    fam = {}
+    t_fam = time.perf_counter()
+    for arch, k2, k3, twin_layers in FAMILIES:
+        fam[arch] = phase_family(torch, FA, K, KS, rs, ref, ops, serve,
+                                 get_config(arch), LM, SyntheticTokens, k2,
+                                 k3, twin_layers, name)
+    fam_secs = time.perf_counter() - t_fam
+    for arch, r in fam.items():
+        log(f"[summary] {name}: {arch} prefill 4x2048 {r['prefill_ms']!r} ms "
+            f"({r['k2']} K2, {r['k3']} K3 launches), peak {r['peak']} B; "
+            f"decode {r['decode_ms']!r} ms per step; phase {r['secs']:.1f} s")
+    log(f"[summary] the four family phases took {fam_secs:.1f} s")
     kernels = [{
         "name": "permute_rounds", "route": "cuda",
         "source": "src/repro_torch/csrc/permute_rounds.cu",
@@ -1996,6 +2371,9 @@ def main():
         "library_ms": at["library_ms"], "graph_ms": at["graph_ms"],
         "library_graph_ms": at["library_graph_ms"],
         "host_ms": at["host_ms"], "d112_ms": at["d112_ms"],
+        "launches_by_family": {"llama3.2-3b": dpf["launches"], **{
+            arch: r["k2"] for arch, r in fam.items()}},
+        "new_shapes": at["new_shapes"],
     }, {
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/ssd_scan.cu",
@@ -2006,6 +2384,9 @@ def main():
         "library_ms": None, "graph_ms": st["graph_ms"],
         "host_ms": st["host_ms"], "tflops": st["tflops"],
         "share_of_bound": st["share_of_bound"], "f32_ms": st["f32_ms"],
+        "launches_by_family": {"mamba2-370m": pf["launches"], **{
+            arch: r["k3"] for arch, r in fam.items() if r["k3"]}},
+        "zamba2": st["zamba2"],
     }, {
         # ms, scan_ms, plain_ms, numpy_ms and bound_ms at the lanes held
         # against the plain version (mesh2d 16 x 16 srda, 12 sizes);
@@ -2047,6 +2428,7 @@ def main():
         f"after the imports")
     print(json.dumps({"calibration": cal}), flush=True)
     print(json.dumps({"distributed": dist_res}), flush=True)
+    print(json.dumps({"families": fam}), flush=True)
     print(name, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

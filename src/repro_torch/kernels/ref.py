@@ -63,7 +63,7 @@ def refuse_grad(name: str, *inputs: torch.Tensor) -> None:
         raise RuntimeError(
             f"{name}: an input on {held[0].device} requires grad, and the "
             f"port's kernel has no backward yet (the training slice, "
-            f"ROADMAP.md queue 1, item 6, brings one); call it under "
+            f"ROADMAP.md queue 1, brings one); call it under "
             f"torch.no_grad() or on tensors that do not require grad")
 
 

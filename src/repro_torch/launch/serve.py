@@ -3,11 +3,15 @@
     python -m repro_torch.launch.serve --arch mamba2-370m --smoke --tokens 32
     python -m repro_torch.launch.serve --arch llama3.2-3b --tokens 32
 
-The port of ``repro.launch.serve`` (``ssm`` and ``dense`` archs), with the
-same flags and flow: the weights come from seed 0, the prompts from
-``SyntheticTokens`` step 0; the prompt is teacher-forced through
-``decode_step`` (which fills the cache), then decoding is greedy. It runs on cuda; ``main(argv, device="cpu")`` runs
-it on the CPU.
+The port of ``repro.launch.serve``, for every ``--arch`` and with the same
+flags and flow: the weights come from seed 0, the prompts from
+``SyntheticTokens`` step 0; the cache is made with ``enc_len`` = the prompt
+length, an encdec's ``cache["enc"]`` is the encoder's pass over the batch's
+frames, the prompt is teacher-forced through ``decode_step`` (which fills
+the cache), then decoding is greedy. As in the reference, a vlm's patches
+are not fed: ``decode_step`` has no patch path, so a served vlm answers
+from the text alone (ROADMAP queue 3, fault 7). It runs on cuda;
+``main(argv, device="cpu")`` runs it on the CPU.
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import time
+from typing import Dict
 
 import torch
 
@@ -43,13 +48,17 @@ def _argmax(logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
 
 
-def generate(model: LM, prompt: torch.Tensor, new_tokens: int) -> Generation:
-    """Teacher-force ``prompt`` (B, P) through ``decode_step``, then take
-    ``new_tokens`` greedy steps."""
+def generate(model: LM, batch: Dict[str, torch.Tensor],
+             new_tokens: int) -> Generation:
+    """Teacher-force ``batch["tokens"]`` (B, P) through ``decode_step``,
+    then take ``new_tokens`` greedy steps. An encdec attends to the
+    encoder's pass over ``batch["frames"]``."""
     dev = model.device
-    prompt = prompt.to(dev)
+    prompt = batch["tokens"].to(dev)
     b, plen = prompt.shape
-    cache = model.init_cache(b, plen + new_tokens + 1)
+    cache = model.init_cache(b, plen + new_tokens + 1, enc_len=plen)
+    if model.cfg.family == "encdec":
+        cache["enc"] = model._encoder(batch["frames"])
     _sync(dev)
     t0 = time.perf_counter()
     for t in range(plen):
@@ -83,7 +92,7 @@ def main(argv=None, device="cuda") -> torch.Tensor:
     model = LM(cfg, device=device, seed=0)
     data = SyntheticTokens(cfg, seq_len=args.prompt_len,
                            global_batch=args.batch)
-    res = generate(model, data.batch(0)["tokens"], args.tokens)
+    res = generate(model, data.batch(0), args.tokens)
     print(f"{cfg.name}: prompt {args.prompt_len} tok fill {res.fill_s:.2f}s; "
           f"generated {args.tokens}x{args.batch} tokens in {res.gen_s:.2f}s "
           f"({res.tok_per_s:.1f} tok/s); sample: "

@@ -19,7 +19,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import _init, dtype_of, rmsnorm
+from repro_torch.models.layers import _init, dtype_of, rmsnorm, silu
 
 
 def _dims(cfg: ModelConfig) -> Tuple[int, int, int, int]:
@@ -77,9 +77,9 @@ def mamba_apply(cfg: ModelConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:
     bsz, s, _ = x.shape
     h = rmsnorm(x, p["norm"], cfg.norm_eps)
     k = cfg.conv_kernel
-    xs = F.silu(_causal_conv(h @ p["in_x"], p["conv_x"], k))
-    B = F.silu(_causal_conv(h @ p["in_B"], p["conv_B"], k))
-    C = F.silu(_causal_conv(h @ p["in_C"], p["conv_C"], k))
+    xs = silu(_causal_conv(h @ p["in_x"], p["conv_x"], k))
+    B = silu(_causal_conv(h @ p["in_B"], p["conv_B"], k))
+    C = silu(_causal_conv(h @ p["in_C"], p["conv_C"], k))
     z = h @ p["in_z"]
     dt = h @ p["in_dt"]
     xs = xs.reshape(bsz, s, heads, dh)
@@ -90,7 +90,7 @@ def mamba_apply(cfg: ModelConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:
     y = ops.ssd(xs, dtv, A, B, C)
     y = y + xs * p["D"].to(x.dtype)[None, None, :, None]
     y = y.reshape(bsz, s, d_in)
-    y = y * F.silu(z)
+    y = y * silu(z)
     y = rmsnorm(y, p["gate_norm"], cfg.norm_eps)
     return (y @ p["out_proj"]).to(x.dtype)
 
@@ -126,9 +126,9 @@ def mamba_step(cfg: ModelConfig, p: Dict, x: torch.Tensor, cache: Dict,
     xr, hx = _conv_step(cache["conv_x"], h @ p["in_x"], p["conv_x"])
     Br, hB = _conv_step(cache["conv_B"], h @ p["in_B"], p["conv_B"])
     Cr, hC = _conv_step(cache["conv_C"], h @ p["in_C"], p["conv_C"])
-    xs = F.silu(xr).reshape(bsz, heads, dh)
-    B = F.silu(Br).reshape(bsz, heads, ds)
-    C = F.silu(Cr).reshape(bsz, heads, ds)
+    xs = silu(xr).reshape(bsz, heads, dh)
+    B = silu(Br).reshape(bsz, heads, ds)
+    C = silu(Cr).reshape(bsz, heads, ds)
     z = h @ p["in_z"]
     dt = h @ p["in_dt"]
     dtv = F.softplus(dt.float() + p["dt_bias"])
@@ -138,7 +138,7 @@ def mamba_step(cfg: ModelConfig, p: Dict, x: torch.Tensor, cache: Dict,
         torch.einsum("bh,bhs,bhd->bhsd", dtv, B.float(), xs.float())
     y = torch.einsum("bhs,bhsd->bhd", C.float(), hstate)
     y = y.to(x.dtype) + xs * p["D"].to(x.dtype)[None, :, None]
-    y = y.reshape(bsz, d_in) * F.silu(z)
+    y = y.reshape(bsz, d_in) * silu(z)
     y = rmsnorm(y, p["gate_norm"], cfg.norm_eps)
     return ((y @ p["out_proj"])[:, None, :]).to(x.dtype), \
         dict(conv_x=hx, conv_B=hB, conv_C=hC, ssm=hstate)

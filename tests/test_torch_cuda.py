@@ -2,9 +2,9 @@
 kernels (the round step K1 -- one sub-round a launch, and every sub-round
 of a broadcast in one persistent launch, also as the calibration's ring
 rounds --, flash attention K2, the SSD scan K3, the simulator's event
-core) against their plain PyTorch versions, small broadcasts on the card against the same
-broadcasts on the CPU, and the Mamba-2 and dense LMs on the card against
-the CPU. They skip on a host
+core) against their plain PyTorch versions, small broadcasts on the card
+against the same broadcasts on the CPU, and the LMs of every family on the
+card against the CPU. They skip on a host
 without a GPU; on the card run them with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -297,7 +297,9 @@ def test_kernels_refuse_grad_on_card(gpu):
 SSD_SHAPES = [(1, 64, 2, 32, 16, 32), (2, 100, 4, 64, 32, 32),
               (1, 256, 2, 64, 128, 128), (1, 32, 8, 128, 64, 16),
               (2, 5, 3, 64, 128, 128), (2, 37, 3, 64, 128, 128),
-              (2, 300, 3, 128, 64, 37), (1, 100, 2, 32, 16, 8)]
+              (2, 300, 3, 128, 64, 37), (1, 100, 2, 32, 16, 8),
+              # zamba2-7b's 56 heads of 128 with state 64 (ssd_tc<128, 64>)
+              (2, 256, 56, 128, 64, 128)]
 
 
 def _ssd_inputs(gpu, seed, b, s, h, dh, ds, dtype):
@@ -479,6 +481,26 @@ def test_attention_kernel_matches_plain(gpu, dtype, causal, b, hq, hkv, s, t,
         assert not got[:, :, :s - t].any()
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", [1, 2048])
+def test_attention_kernel_encdec_cross_attention(gpu, dtype, s):
+    """seamless-m4t-large-v2's cross-attention: 16 q and 16 kv heads of 64,
+    non-causal, S = 2048 (a prefill, and its encoder) and S = 1 (decode)
+    against the encoder's T = 2048."""
+    from repro_torch.kernels import flash_attention as K
+    from repro_torch.kernels import ref
+
+    args = _attn_inputs(gpu, 7 + s, 2, 16, 16, s, 2048, 64,
+                        getattr(torch, dtype))
+    before = K.launches
+    got = K.flash_attention(*args, causal=False)
+    torch.cuda.synchronize()
+    assert K.launches == before + 1
+    want = ref.attention_ref(*args, causal=False)
+    tol = 2e-2 if dtype == "bfloat16" else 3e-5
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
 def test_attention_kernel_reads_model_layout_by_strides(gpu):
     """q, k, v as (B, H, S, D) views of (B, S, H, D) projections: no copy,
     and the output has q's strides."""
@@ -586,6 +608,54 @@ def test_dense_lm_on_card_matches_cpu(gpu):
         b = card.decode_step(c_card, toks[:, t:t + 1])[0]
         torch.testing.assert_close(b.cpu(), a, atol=1e-4, rtol=1e-4)
     assert K.launches - before == cfg.layers
+
+
+FAMILY_LAUNCHES = {  # arch: (K2, K3) launches of a smoke prefill
+    "llava-next-mistral-7b": (2, 0), "granite-moe-1b-a400m": (2, 0),
+    "arctic-480b": (2, 0), "zamba2-7b": (1, 3),
+    "seamless-m4t-large-v2": (6, 0)}
+
+
+@pytest.mark.parametrize("arch", sorted(FAMILY_LAUNCHES))
+def test_family_lm_on_card_matches_cpu(gpu, arch):
+    """Each new family's smoke LM in float32 on the card against the same
+    model on the CPU: a prefill's K2 and K3 launches, its logits and cache,
+    and 4 decode steps' logits (1e-4; cache states within 1e-4 of their
+    largest value)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ssd_scan as K
+    from repro_torch.models.model import LM
+
+    cfg = get_config(arch).smoke().scaled(dtype="float32")
+    cpu, card = LM(cfg, device="cpu"), LM(cfg, device=gpu)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(1)
+    batch = dict(tokens=torch.from_numpy(rng.integers(
+        0, cfg.vocab, (2, 40)).astype(np.int32)))
+    if cfg.family == "vlm":
+        batch["patches"] = torch.from_numpy(rng.standard_normal(
+            (2, cfg.num_patches, cfg.d_model)).astype(np.float32) * 0.02)
+    if cfg.family == "encdec":
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (2, 24, cfg.d_model)).astype(np.float32) * 0.02)
+    n = 40 + (cfg.num_patches if cfg.family == "vlm" else 0)
+    c_cpu = cpu.init_cache(2, n + 4, enc_len=24)
+    c_card = card.init_cache(2, n + 4, enc_len=24)
+    before = (FA.launches, K.launches)
+    got, _ = card.prefill(batch, c_card)
+    assert (FA.launches - before[0], K.launches - before[1]) == \
+        FAMILY_LAUNCHES[arch]
+    want, _ = cpu.prefill(batch, c_cpu)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    for key, t in c_cpu.items():
+        tol = 1e-4 * max(1.0, float(t.abs().max()))
+        torch.testing.assert_close(c_card[key].cpu(), t, atol=tol, rtol=tol)
+    for t in range(4):
+        tok = batch["tokens"][:, t:t + 1]
+        a = cpu.decode_step(c_cpu, tok)[0]
+        b = card.decode_step(c_card, tok)[0]
+        torch.testing.assert_close(b.cpu(), a, atol=1e-4, rtol=1e-4)
 
 
 EC_LISTS = [("mesh2d", (4, 6), "binomial"), ("mesh2d", (4, 6), "flat"),

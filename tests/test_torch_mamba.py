@@ -157,7 +157,7 @@ def test_serve_loop_tokens_match_reference(pair32):
     jbatch = JSyntheticTokens(jm.cfg, seq_len=6, global_batch=2).batch(0)
     batch = SyntheticTokens(m.cfg, seq_len=6, global_batch=2).batch(0)
     want = _jax_serve_loop(jm, params, jbatch["tokens"], 8)
-    res = serve.generate(m, batch["tokens"], 8)
+    res = serve.generate(m, batch, 8)
     assert res.tokens.dtype == torch.int32
     np.testing.assert_array_equal(res.tokens.numpy(), want)
 
@@ -167,15 +167,6 @@ def test_serve_main_on_cpu(capsys):
                       "--prompt-len", "4", "--tokens", "3"], device="cpu")
     assert tuple(gen.shape) == (2, 3) and gen.dtype == torch.int32
     assert "tok/s" in capsys.readouterr().out
-
-
-@pytest.mark.parametrize("family_arch", ["granite-moe-1b-a400m", "zamba2-7b",
-                                         "llava-next-mistral-7b",
-                                         "seamless-m4t-large-v2"])
-def test_other_families_are_not_ported_yet(family_arch):
-    """moe, hybrid, vlm and encdec; ssm and dense are ported."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LM(get_config(family_arch).smoke(), device="cpu")
 
 
 def test_lm_defaults_to_cuda_and_raises_without_gpu(monkeypatch):
