@@ -133,11 +133,34 @@ Phases, each of which exits non-zero on failure:
    --prompt-len 8 --tokens 16``. Phases 12 and 9 hold K2 and K3 at these
    models' new shapes (K2 non-causal at S = 2048 and S = 1 against
    T = 2048, K2 at llava's 2304, K3 at zamba2-7b's (4, 2048, 56, 128,
-   64)).
+   64));
+19. ``[train]``, the training path (``runtime.steps``, ``optim.adamw``,
+   ``checkpoint.store``, ``runtime.supervisor``, ``launch.train``): K2
+   and K3 through their autograd Function (``kernels.grad.KernelGrad``:
+   the kernel forward, the plain version's backward) at llama3.2-3b's
+   prefill (4, 32, 16, 2048, 2048, 128) and training (8, 32, 16, 128,
+   128, 128) shapes, a non-causal S != T shape, Mamba-2's and zamba2-7b's
+   prefill shapes and the overflow regime: one counted launch each, input
+   gradients bit-equal to autograd through the plain version, finite;
+   ``LM.loss`` and its backward for llama3.2-3b and mamba2-370m at 8 x 128,
+   full width and depth, through the kernels (28 K2 / 48 K3 launches) and
+   through the plain versions, in bf16 and on the float32 twin (the twin's
+   paths within 1e-3; each bf16 gradient within twice bf16's own distance
+   from the twin's); eight ``make_train_step`` steps of llama3.2-3b at
+   8 x 128, lr 1e-3 (a finite, falling loss; exactly 28 K2 launches a step
+   and none of K3, K1 or EC; ms a step, peak memory), two microbatches
+   against one from the same parameters (loss and grad norm within 1e-2),
+   a ``torch.profiler`` window over one step split into GEMMs, K2, the
+   plain attention backward, AdamW and other; and ``launch.train.main``
+   for mamba2-370m (12 steps, a checkpoint every 6: a falling loss,
+   exactly 48 K3 launches a step, the step-6 checkpoint restored bit-equal
+   to the state it saved, a fresh supervisor resuming from step 12 with no
+   step run, steps 7-12 rerun from step 6 within 1e-3 of the first run's
+   losses; seconds a save and a restore; the directory removed).
 
 The last lines are one JSON line with the calibration readings, one with
-the distributed phase's (null on one GPU), one with the families' readings,
-the card
+the distributed phase's (null on one GPU), one with the families'
+readings, one with the training section's, the card
 (``nvidia-smi`` name and power limit), one JSON line with every kernel, and
 ``{"ok": true, "device": {...}}``. Without a
 GPU, or without the repo beside it, it exits non-zero and prints no result.
@@ -146,6 +169,7 @@ GPU, or without the repo beside it, it exits non-zero and prints no result.
 import contextlib
 import ctypes
 import json
+import math
 import os
 import re
 import subprocess
@@ -2188,6 +2212,409 @@ def phase_family(torch, FA, K, KS, rs, ref, ops, serve, cfg, LM,
                     twin_layers or cfg.layers), secs=secs)
 
 
+# ---------------------------------------------------------------- [train]
+
+TRAIN_BATCH, TRAIN_SEQ = 8, 128        # the train CLI's defaults
+TRAIN_STEPS = 8                        # llama3.2-3b steps at full width
+TRAIN_LR = 1e-3
+CLI_STEPS, CLI_EVERY = 12, 6           # the CLI run of mamba2-370m
+GRAD_ATTN = (("llama3.2-3b prefill", ATTN_MAIN, True),
+             ("llama3.2-3b training", (8, 32, 16, 128, 128, 128), True),
+             ("non-causal S != T", (4, 16, 16, 512, 2048, 64), False))
+GRAD_SSD = (("mamba2-370m prefill", SSD_MAIN[:5], None),
+            ("zamba2-7b prefill", ZAMBA_SSD, None),
+            ("overflow regime (dt = 2, A = -1)", SSD_MAIN[:5], (2.0, -1.0)))
+
+
+def counts(FA, K, rs, KS):
+    """The launch counters of K2, K3, K1 (both kernels) and EC (both)."""
+    return (FA.launches, K.launches, rs.launches, rs.rounds_launches,
+            KS.launches, KS.scan_launches)
+
+
+def reset_counts(FA, K, rs, KS):
+    FA.launches = K.launches = rs.launches = rs.rounds_launches = 0
+    KS.launches = KS.scan_launches = 0
+
+
+def grad_vs_plain(torch, fn, plain, inputs, what, counter):
+    """``fn(*inputs)`` with every input requiring grad: one launch (the
+    forward, read from ``counter()``), and input gradients for one fixed
+    upstream gradient bit-equal to autograd through ``plain`` on the same
+    inputs, and finite. Returns the largest gradient entry."""
+    leaves = [t.detach().clone().requires_grad_() for t in inputs]
+    before = counter()
+    out = fn(*leaves)
+    if counter() != before + 1 or out.grad_fn is None:
+        fail(f"[train] {what}: the forward launched the kernel "
+             f"{counter() - before} times (expected 1), grad_fn "
+             f"{out.grad_fn}")
+    g = torch.Generator(device="cuda").manual_seed(7)
+    up = torch.randn(out.shape, device="cuda", generator=g).to(out.dtype)
+    got = torch.autograd.grad(out, leaves, up)
+    del out
+    twins = [t.detach().clone().requires_grad_() for t in inputs]
+    want = torch.autograd.grad(plain(*twins), twins, up)
+    largest = 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        if not bool(torch.isfinite(a.float()).all()):
+            fail(f"[train] {what}: input {i}'s gradient is not finite")
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            fail(f"[train] {what}: input {i}'s gradient differs from the "
+                 f"plain version's (max "
+                 f"{float((a.float() - b.float()).abs().max())!r})")
+        largest = max(largest, float(a.float().abs().max()))
+    log(f"[train] {what}: the kernel's forward (1 launch), gradients of "
+        f"{len(got)} inputs bit-equal to autograd through the plain version "
+        f"and finite (largest entry {largest!r})")
+    return largest
+
+
+def phase_train_grad(torch, FA, K, ref):
+    """K2 and K3 through ``kernels.grad.KernelGrad`` on the card: K2 at
+    llama3.2-3b's prefill and training shapes and a non-causal S != T
+    shape, K3 at Mamba-2's and zamba2-7b's prefill shapes and in the
+    overflow regime, all bf16."""
+    for what, (b, hq, hkv, s, t, d), causal in GRAD_ATTN:
+        inputs = attn_inputs(torch, b, hq, hkv, s, t, d, torch.bfloat16, 11)
+
+        def attn(q, k, v, causal=causal):
+            return FA.flash_attention(q, k, v, causal=causal)
+
+        def plain(q, k, v, causal=causal):
+            return ref.attention_ref(q, k, v, causal=causal)
+
+        grad_vs_plain(torch, attn, plain, inputs, f"K2 {what} "
+                      f"{(b, hq, hkv, s, t, d)} causal={causal}",
+                      lambda: FA.launches)
+        torch.cuda.empty_cache()
+    for what, (b, s, h, dh, ds), regime in GRAD_SSD:
+        dt_value, a = regime or (None, None)
+        inputs = ssd_inputs(torch, b, s, h, dh, ds, torch.bfloat16, 12,
+                            dt_value=dt_value, a=a)
+        grad_vs_plain(torch, K.ssd_scan, ref.ssd_chunked, inputs,
+                      f"K3 {what} {(b, s, h, dh, ds)}", lambda: K.launches)
+        torch.cuda.empty_cache()
+
+
+def grads_of(torch, value_and_grad, model, batch):
+    """(loss, {name: gradient}) of ``model.loss(batch)``."""
+    model.requires_grad_(True)
+    loss, grads = value_and_grad(model, dict(model.named_parameters()),
+                                 batch)
+    return float(loss), grads
+
+
+def leaf_dist(torch, a, b):
+    return float((a.float() - b.float()).abs().max())
+
+
+def phase_train_loss(torch, FA, K, rs, KS, ref, ops, cfg, LM,
+                     SyntheticTokens, value_and_grad, launches):
+    """One ``LM.loss`` and backward at full width and depth, 8 x 128,
+    through the kernels (exactly ``launches`` K2 or K3 launches) and
+    through the plain versions, in bf16 and on the float32 twin. Gates:
+    the twin's kernel path within 1e-3 of its plain path (loss, and each
+    gradient against its largest entry); each bf16 kernel-path gradient
+    within twice the plain bf16 path's own distance from the twin's plain
+    gradient; the bf16 loss within twice that distance plus 1e-3 (one
+    scalar: its distance may be near 0 by chance). Returns the
+    readings."""
+    tag = cfg.name
+    kind = "K2" if cfg.family != "ssm" else "K3"
+    model = LM(cfg)
+    batch = {k: v.cuda() for k, v in SyntheticTokens(
+        cfg, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH).batch(0).items()}
+    f32 = twin(LM, model, cfg, dtype="float32")
+    with attention_as(ops, ref.attention_ref), ssd_as(ops, ref.ssd_chunked):
+        loss_p32, g_p32 = grads_of(torch, value_and_grad, f32, batch)
+    reset_counts(FA, K, rs, KS)
+    loss_k32, g_k32 = grads_of(torch, value_and_grad, f32, batch)
+    got = counts(FA, K, rs, KS)
+    want = (launches, 0) if kind == "K2" else (0, launches)
+    if got != want + (0, 0, 0, 0):
+        fail(f"[train] {tag} float32 loss launched K2, K3, K1 and EC {got} "
+             f"times, expected {want + (0, 0, 0, 0)}")
+    worst32 = 0.0
+    for k, g in g_k32.items():
+        ref_max = float(g_p32[k].abs().max())
+        err = leaf_dist(torch, g, g_p32[k])
+        if not bool(torch.isfinite(g).all()) or err > F32_MODEL_TOL * ref_max:
+            fail(f"[train] {tag} float32 gradient {k}: kernel path "
+                 f"{err!r} from the plain path (largest entry {ref_max!r})")
+        worst32 = max(worst32, err / max(ref_max, 1e-30))
+    if abs(loss_k32 - loss_p32) > F32_MODEL_TOL:
+        fail(f"[train] {tag} float32 loss {loss_k32!r} vs plain "
+             f"{loss_p32!r}")
+    del g_k32, f32
+    torch.cuda.empty_cache()
+    log(f"[train] {tag} float32 twin, loss and backward at "
+        f"{TRAIN_BATCH}x{TRAIN_SEQ}: {launches} {kind} launches; loss "
+        f"{loss_k32!r} vs plain {loss_p32!r}; each gradient within "
+        f"{worst32!r} of its largest entry of the plain path's (bound "
+        f"{F32_MODEL_TOL})")
+
+    with attention_as(ops, ref.attention_ref), ssd_as(ops, ref.ssd_chunked):
+        loss_p16, g_p16 = grads_of(torch, value_and_grad, model, batch)
+    noise = {k: leaf_dist(torch, g, g_p32[k]) for k, g in g_p16.items()}
+    del g_p16
+    reset_counts(FA, K, rs, KS)
+    loss_k16, g_k16 = grads_of(torch, value_and_grad, model, batch)
+    if counts(FA, K, rs, KS) != want + (0, 0, 0, 0):
+        fail(f"[train] {tag} bf16 loss launched K2, K3, K1 and EC "
+             f"{counts(FA, K, rs, KS)} times")
+    worst = 0.0
+    for k, g in g_k16.items():
+        err = leaf_dist(torch, g, g_p32[k])
+        if not bool(torch.isfinite(g.float()).all()) or err > 2 * noise[k]:
+            fail(f"[train] {tag} bf16 gradient {k}: {err!r} from the float32 "
+                 f"twin's, bf16's own distance {noise[k]!r}")
+        worst = max(worst, err / max(noise[k], 1e-30))
+    lnoise = abs(loss_p16 - loss_p32)
+    if abs(loss_k16 - loss_p32) > 2 * lnoise + F32_MODEL_TOL:
+        fail(f"[train] {tag} bf16 loss {loss_k16!r}: float32 twin "
+             f"{loss_p32!r}, plain bf16 {loss_p16!r}")
+    log(f"[train] {tag} bf16, loss and backward at {TRAIN_BATCH}x"
+        f"{TRAIN_SEQ}: loss {loss_k16!r} (plain bf16 {loss_p16!r}, float32 "
+        f"twin {loss_p32!r}); each gradient's distance from the twin's at "
+        f"most {worst!r} times the plain bf16 path's (bound 2)")
+    del g_k16, g_p32, model
+    torch.cuda.empty_cache()
+    return dict(loss=loss_k16, loss_f32=loss_k32, f32_rel=worst32,
+                bf16_ratio=worst)
+
+
+def profile_train_step(torch, G, steps, fn, what):
+    """One train step under ``torch.profiler``, its device time split by
+    kind: GEMMs, K2, the plain attention backward (inside
+    ``KernelGrad.backward``), AdamW's elementwise passes (inside
+    ``adamw_update``), other. Returns the split (ms) and the busy share."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    back, upd = G.KernelGrad.backward, steps.adamw_update
+
+    def backward(ctx, grad_out):
+        with record_function("plain attention backward"):
+            return back(ctx, grad_out)
+
+    def adamw(*a, **kw):
+        with record_function("adamw"):
+            return upd(*a, **kw)
+
+    G.KernelGrad.backward = staticmethod(backward)
+    steps.adamw_update = adamw
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    finally:
+        G.KernelGrad.backward, steps.adamw_update = staticmethod(back), upd
+    kinds = dict(GEMMs=0.0, K2=0.0, plain_attention_backward=0.0,
+                 adamw=0.0, other=0.0)
+    by_name = {}
+
+    def within(e, label):
+        while e is not None:
+            if e.name == label:
+                return True
+            e = e.cpu_parent
+        return False
+
+    for e in prof.events():
+        for kern in getattr(e, "kernels", []):
+            n = kern.name
+            k = "plain_attention_backward" if within(
+                e, "plain attention backward") else \
+                "adamw" if within(e, "adamw") else \
+                "K2" if "attn_tc" in n or "attn_fma" in n else \
+                "GEMMs" if any(w in n.lower() for w in (
+                    "gemm", "gemv", "nvjet", "xmma", "cutlass")) else "other"
+            kinds[k] += kern.duration
+            by_name[(k, n)] = by_name.get((k, n), 0.0) + kern.duration
+    busy = sum(kinds.values())
+    log(f"[profile] {what}: kernels busy {busy / 1e3!r} ms of a "
+        f"{wall_us / 1e3!r} ms window (profiler on), busy share "
+        f"{busy / wall_us!r}; " + ", ".join(
+            f"{k} {v / 1e3!r} ms" for k, v in kinds.items()))
+    for (k, n), us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"[profile]   {us / 1e3:10.3f} ms  {k:24s} {n[:90]}")
+    return {k: v / 1e3 for k, v in kinds.items()}, busy / wall_us
+
+
+def phase_train_llama(torch, FA, K, rs, KS, G, steps, cfg, LM,
+                      SyntheticTokens, adamw_init):
+    """llama3.2-3b at full width and depth trained by ``make_train_step``
+    (lr 1e-3, 8 x 128 ``SyntheticTokens``): ``TRAIN_STEPS`` steps with a
+    finite, falling loss and exactly one K2 launch a layer a step (none of
+    K3, K1, EC); ms a step and peak memory; then from the same parameters
+    one step with two microbatches against one with one (lr 0, so neither
+    moves the parameters): loss and grad norm within 1e-2 relative; a
+    profile of one step. Returns the readings."""
+    tag = cfg.name
+    model = LM(cfg)
+    step = steps.make_train_step(model, lr=TRAIN_LR)
+    params = dict(model.named_parameters())
+    opt = adamw_init(params)
+    data = SyntheticTokens(cfg, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    for i in range(TRAIN_STEPS):
+        batch = data.batch(i)
+        reset_counts(FA, K, rs, KS)
+        t0 = time.perf_counter()
+        _, opt, met = step(params, opt, batch)
+        losses.append(float(met["loss"]))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if counts(FA, K, rs, KS) != (cfg.layers, 0, 0, 0, 0, 0):
+            fail(f"[train] {tag} step {i} launched K2, K3, K1 and EC "
+                 f"{counts(FA, K, rs, KS)} times, expected "
+                 f"{(cfg.layers, 0, 0, 0, 0, 0)}")
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        fail(f"[train] {tag}: losses {losses} are not finite and falling")
+    log(f"[train] {tag}: {TRAIN_STEPS} steps of make_train_step at "
+        f"{TRAIN_BATCH}x{TRAIN_SEQ}, lr {TRAIN_LR}: loss {losses}; "
+        f"{cfg.layers} K2 launches a step; ms a step {ms} (host clock, "
+        f"ended by reading the loss and a synchronize); peak memory {peak} "
+        f"B")
+    batch = data.batch(TRAIN_STEPS)
+    mets = []
+    for mb in (2, 1):
+        _, opt, met = steps.make_train_step(model, lr=0.0, microbatches=mb)(
+            params, opt, batch)
+        mets.append({k: float(v) for k, v in met.items()})
+    for k in ("loss", "grad_norm"):
+        if abs(mets[0][k] - mets[1][k]) > 1e-2 * abs(mets[1][k]):
+            fail(f"[train] {tag}: {k} with two microbatches {mets[0][k]!r} "
+                 f"vs one {mets[1][k]!r}")
+    log(f"[train] {tag}: two microbatches vs one from the same parameters "
+        f"(lr 0): loss {mets[0]['loss']!r} / {mets[1]['loss']!r}, grad norm "
+        f"{mets[0]['grad_norm']!r} / {mets[1]['grad_norm']!r} (bound 1e-2 "
+        f"relative)")
+    split, busy = profile_train_step(
+        torch, G, steps, lambda: float(step(params, opt, batch)[2]["loss"]),
+        f"{tag} one train step {TRAIN_BATCH}x{TRAIN_SEQ}")
+    del model, params, opt, step
+    torch.cuda.empty_cache()
+    return dict(losses=losses, ms=ms, peak=peak, microbatches=mets,
+                profile_ms=split, busy=busy)
+
+
+def phase_train_cli(torch, FA, K, rs, KS, steps, store, train, sup_mod,
+                    cfg, LM, SyntheticTokens, adamw_init):
+    """``repro_torch.launch.train.main`` for mamba2-370m at full width
+    (``CLI_STEPS`` steps, a checkpoint every ``CLI_EVERY``): a falling
+    loss, exactly one K3 launch a layer a step and none of K2, K1 or EC;
+    the step-6 checkpoint restores bit-equal to the state it saved; a
+    fresh supervisor resumes from step 12 without running a step; steps
+    7-12 rerun from the step-6 checkpoint give the first run's losses
+    within 1e-3 relative (the embedding's scatter-add is atomic, so not
+    bit-deterministic). Prints the seconds a save and a restore. Returns
+    the readings."""
+    import shutil
+    import tempfile
+    tag = cfg.name
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    free = shutil.disk_usage(tmp).free
+    snaps, saves = {}, []
+
+    class Recording(store.CheckpointManager):
+        """Keeps a copy on the card of the state each save wrote."""
+
+        def save(self, step, tree, extra=None):
+            snaps[step] = {k: v.detach().clone()
+                           for k, v in store._flatten(tree)}
+            t0 = time.perf_counter()
+            path = super().save(step, tree, extra)
+            saves.append(time.perf_counter() - t0)
+            return path
+
+    real = train.CheckpointManager
+    train.CheckpointManager = Recording
+    reset_counts(FA, K, rs, KS)
+    try:
+        t0 = time.perf_counter()
+        state = train.main(["--arch", tag, "--steps", str(CLI_STEPS),
+                            "--ckpt-every", str(CLI_EVERY), "--ckpt-dir",
+                            tmp], device="cuda")
+        secs = time.perf_counter() - t0
+        got = counts(FA, K, rs, KS)
+        hist = state["history"]
+        want = (0, cfg.layers * CLI_STEPS, 0, 0, 0, 0)
+        if got != want or len(hist) != CLI_STEPS:
+            fail(f"[train] {tag} CLI: {len(hist)} steps launched K2, K3, K1 "
+                 f"and EC {got} times, expected {CLI_STEPS} and {want}")
+        if not hist[-1] < hist[0]:
+            fail(f"[train] {tag} CLI: the loss did not fall: {hist}")
+        size = sum(os.path.getsize(os.path.join(d, f))
+                   for d, _, fs in os.walk(os.path.join(
+                       tmp, f"step_{CLI_EVERY:010d}")) for f in fs)
+        log(f"[train] {tag} CLI: {CLI_STEPS} steps at {TRAIN_BATCH}x"
+            f"{TRAIN_SEQ} in {secs!r} s (checkpoints included), "
+            f"{cfg.layers} K3 launches a step; loss {hist}; saves {saves} "
+            f"s for {size} B each ({free} B free on the disk)")
+        live = dict(params=state["params"], opt=state["opt"])
+        t0 = time.perf_counter()
+        store.load_checkpoint(tmp, live, step=CLI_EVERY)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        for k, v in store._flatten(live):
+            if not torch.equal(v, snaps[CLI_EVERY][k]):
+                fail(f"[train] {tag}: {k} restored from step {CLI_EVERY} "
+                     f"differs from the state that was saved")
+        del state, live, snaps[CLI_EVERY]
+    finally:
+        train.CheckpointManager = real
+
+    model = LM(cfg)
+    step = steps.make_train_step(model, lr=TRAIN_LR)
+    params = dict(model.named_parameters())
+    fresh = dict(params=params, opt=adamw_init(params))
+    data = SyntheticTokens(cfg, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+    reset_counts(FA, K, rs, KS)
+    sup = sup_mod.TrainSupervisor(step, data.batch,
+                                  store.CheckpointManager(tmp, keep=3),
+                                  ckpt_every=CLI_EVERY)
+    resumed = sup.run(fresh, 0, CLI_STEPS)
+    if resumed["history"] or K.launches:
+        fail(f"[train] {tag}: a fresh supervisor re-ran "
+             f"{len(resumed['history'])} steps ({K.launches} K3 launches) "
+             f"after the step-{CLI_STEPS} checkpoint")
+    for k, v in store._flatten(dict(params=resumed["params"],
+                                    opt=resumed["opt"])):
+        if not torch.equal(v, snaps[CLI_STEPS][k]):
+            fail(f"[train] {tag}: {k} resumed from step {CLI_STEPS} differs "
+                 f"from the state that was saved")
+    snaps.clear()
+    shutil.rmtree(os.path.join(tmp, f"step_{CLI_STEPS:010d}"))
+    sup = sup_mod.TrainSupervisor(step, data.batch,
+                                  store.CheckpointManager(tmp, keep=3),
+                                  ckpt_every=CLI_EVERY)
+    rerun = sup.run(fresh, 0, CLI_STEPS)["history"]
+    first = hist[CLI_EVERY:]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(rerun, first))
+    if len(rerun) != CLI_STEPS - CLI_EVERY or rel > 1e-3:
+        fail(f"[train] {tag}: steps {CLI_EVERY + 1}-{CLI_STEPS} rerun from "
+             f"the step-{CLI_EVERY} checkpoint give {rerun}, the first run "
+             f"{first}")
+    log(f"[train] {tag}: step {CLI_EVERY} restored bit-equal to the saved "
+        f"state ({restore_s!r} s); a fresh supervisor resumed from step "
+        f"{CLI_STEPS} with no step run and the saved state; steps "
+        f"{CLI_EVERY + 1}-{CLI_STEPS} rerun from step {CLI_EVERY}: losses "
+        f"within {rel!r} relative of the first run's (bound 1e-3)")
+    del model, params, fresh, step, resumed, sup
+    shutil.rmtree(tmp)
+    torch.cuda.empty_cache()
+    return dict(losses=hist, secs=secs, save_s=saves, ckpt_bytes=size,
+                restore_s=restore_s, rerun_rel=rel)
+
+
 def main():
     try:
         import torch
@@ -2338,6 +2765,41 @@ def main():
             f"({r['k2']} K2, {r['k3']} K3 launches), peak {r['peak']} B; "
             f"decode {r['decode_ms']!r} ms per step; phase {r['secs']:.1f} s")
     log(f"[summary] the four family phases took {fam_secs:.1f} s")
+
+    from repro_torch.checkpoint import store
+    from repro_torch.kernels import grad as G
+    from repro_torch.launch import train
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.runtime import steps
+    from repro_torch.runtime import supervisor as sup_mod
+    t_train = time.perf_counter()
+    phase_train_grad(torch, FA, K, ref)
+    mcfg = get_config("mamba2-370m")
+    tloss = {c.name: phase_train_loss(torch, FA, K, rs, KS, ref, ops, c, LM,
+                                      SyntheticTokens, steps.value_and_grad,
+                                      c.layers)
+             for c in (dcfg, mcfg)}
+    tr = phase_train_llama(torch, FA, K, rs, KS, G, steps, dcfg, LM,
+                           SyntheticTokens, adamw_init)
+    cli = phase_train_cli(torch, FA, K, rs, KS, steps, store, train, sup_mod,
+                          mcfg, LM, SyntheticTokens, adamw_init)
+    train_secs = time.perf_counter() - t_train
+    log(f"[summary] {name}: training llama3.2-3b {TRAIN_BATCH}x{TRAIN_SEQ} "
+        f"at full width and depth: {min(tr['ms'][1:])!r} ms a step (least "
+        f"of steps 2-{TRAIN_STEPS}), peak {tr['peak']} B, loss "
+        f"{tr['losses'][0]!r} -> {tr['losses'][-1]!r}, {dcfg.layers} K2 "
+        f"launches a step; one step by kind (ms) {tr['profile_ms']}; "
+        f"mamba2-370m through the CLI: {CLI_STEPS} steps in "
+        f"{cli['secs']!r} s, loss {cli['losses'][0]!r} -> "
+        f"{cli['losses'][-1]!r}, {mcfg.layers} K3 launches a step, a save "
+        f"{cli['save_s']} s for {cli['ckpt_bytes']} B, a restore "
+        f"{cli['restore_s']!r} s; the [train] section took "
+        f"{train_secs:.1f} s")
+    train_res = dict(loss_grads=tloss, llama=tr, cli=cli, secs=train_secs)
+    train_k2 = {f"{dcfg.name} train step": dcfg.layers,
+                f"{dcfg.name} loss {TRAIN_BATCH}x{TRAIN_SEQ}": dcfg.layers}
+    train_k3 = {f"{mcfg.name} train step (CLI)": mcfg.layers,
+                f"{mcfg.name} loss {TRAIN_BATCH}x{TRAIN_SEQ}": mcfg.layers}
     kernels = [{
         "name": "permute_rounds", "route": "cuda",
         "source": "src/repro_torch/csrc/permute_rounds.cu",
@@ -2373,6 +2835,9 @@ def main():
         "host_ms": at["host_ms"], "d112_ms": at["d112_ms"],
         "launches_by_family": {"llama3.2-3b": dpf["launches"], **{
             arch: r["k2"] for arch, r in fam.items()}},
+        "launches_by_path": train_k2,
+        "backward": "plain recompute: attention_ref under autograd "
+                    "(kernels/grad.py KernelGrad)",
         "new_shapes": at["new_shapes"],
     }, {
         "name": "ssd_scan", "route": "cuda",
@@ -2386,6 +2851,9 @@ def main():
         "share_of_bound": st["share_of_bound"], "f32_ms": st["f32_ms"],
         "launches_by_family": {"mamba2-370m": pf["launches"], **{
             arch: r["k3"] for arch, r in fam.items() if r["k3"]}},
+        "launches_by_path": train_k3,
+        "backward": "plain recompute: ssd_chunked under autograd "
+                    "(kernels/grad.py KernelGrad)",
         "zamba2": st["zamba2"],
     }, {
         # ms, scan_ms, plain_ms, numpy_ms and bound_ms at the lanes held
@@ -2429,6 +2897,7 @@ def main():
     print(json.dumps({"calibration": cal}), flush=True)
     print(json.dumps({"distributed": dist_res}), flush=True)
     print(json.dumps({"families": fam}), flush=True)
+    print(json.dumps({"train": train_res}), flush=True)
     print(name, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

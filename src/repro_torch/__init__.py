@@ -9,8 +9,10 @@ calibrates the simulator's Hockney constants from it;
 ``repro_torch.core.planstore``, ``repro_torch.launch.planserver`` and
 ``repro_torch.workload`` are copies of the reference's plan store, plan
 server and workload engine; ``repro_torch.api`` is the facade. The LM
-substrate so far: ``configs`` (a copy), ``data``, ``kernels`` (flash
-attention and the SSD scan as hand-written CUDA kernels beside their plain
-versions), ``models`` (the ``ssm`` and ``dense`` families) and
-``launch.serve``.
+substrate: ``configs`` (a copy), ``data``, ``kernels`` (flash attention
+and the SSD scan as hand-written CUDA kernels beside their plain versions,
+differentiable through the plain backward), ``models`` (all six families
+of the reference, and their loss), ``launch.serve``; and training on one
+device: ``optim`` (AdamW, the cosine schedule), ``runtime`` (the train
+step, the supervisor), ``checkpoint`` and ``launch.train``.
 """

@@ -1,0 +1,135 @@
+"""Atomic checkpoints in the reference's format, the port of
+``repro.checkpoint.store``.
+
+Layout: ``<dir>/step_<n:010d>/{manifest.json, arrays.npz}``. A save writes
+a temp dir inside ``<dir>`` and renames it into place (atomic on POSIX),
+so a crash mid-save never corrupts the newest complete checkpoint. The npz
+keys are the tree's paths joined by ``/``, a parameter's dotted name split
+into its parts: ``params/embed/tok``, ``opt/mu/attn/wq``, ``opt/step``;
+bfloat16 is widened to float32 losslessly (npz has no bfloat16) and
+narrowed again on load; the manifest holds ``step``, ``time``, the sorted
+``keys``, ``extra`` and ``format: "npz-v1"``. A checkpoint written by
+either package restores in the other.
+
+Restore copies each array into the live tensor of ``like_tree``, on that
+tensor's device and in its dtype, after checking its shape; a key of
+``like_tree`` missing from the file raises ``KeyError``, as in the
+reference. Like the reference (ROADMAP reference fault 8), restore fans
+nothing out with BBS; re-placing on a new mesh waits for the sharding
+slice.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import tempfile
+import time
+from typing import Any, Dict, Iterator, List, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+
+MANIFEST = "manifest.json"
+ARRAYS = "arrays.npz"
+
+
+def _flatten(tree: Mapping, prefix: Tuple[str, ...] = (),
+             ) -> Iterator[Tuple[str, Any]]:
+    """(key, leaf) for every leaf; the key is the path joined by ``/``."""
+    for k, v in tree.items():
+        path = prefix + tuple(str(k).split("."))
+        if isinstance(v, Mapping):
+            yield from _flatten(v, path)
+        else:
+            yield "/".join(path), v
+
+
+def _to_numpy(leaf) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.float()             # lossless; load narrows it again
+        return t.numpy()
+    return np.asarray(leaf)
+
+
+def save_checkpoint(ckpt_dir: str, step: int, tree: Mapping,
+                    extra: Optional[Dict] = None) -> str:
+    os.makedirs(ckpt_dir, exist_ok=True)
+    final = os.path.join(ckpt_dir, f"step_{step:010d}")
+    tmp = tempfile.mkdtemp(prefix=".tmp_ckpt_", dir=ckpt_dir)
+    try:
+        arrays = {k: _to_numpy(v) for k, v in _flatten(tree)}
+        np.savez(os.path.join(tmp, ARRAYS), **arrays)
+        manifest = dict(step=step, time=time.time(),
+                        keys=sorted(arrays), extra=extra or {},
+                        format="npz-v1")
+        with open(os.path.join(tmp, MANIFEST), "w") as f:
+            json.dump(manifest, f, indent=1)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)       # atomic publish
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    return final
+
+
+def _steps(ckpt_dir: str) -> List[int]:
+    """The steps of the complete checkpoints in ``ckpt_dir``, sorted."""
+    if not os.path.isdir(ckpt_dir):
+        return []
+    return sorted(int(n.split("_")[1]) for n in os.listdir(ckpt_dir)
+                  if n.startswith("step_") and
+                  os.path.exists(os.path.join(ckpt_dir, n, MANIFEST)))
+
+
+def latest_step(ckpt_dir: str) -> Optional[int]:
+    steps = _steps(ckpt_dir)
+    return steps[-1] if steps else None
+
+
+def load_checkpoint(ckpt_dir: str, like_tree: Mapping,
+                    step: Optional[int] = None) -> Tuple[Mapping, Dict]:
+    """Restore step ``step`` (the newest by default) into the tensors of
+    ``like_tree`` in place; returns ``(like_tree, manifest)``."""
+    step = step if step is not None else latest_step(ckpt_dir)
+    if step is None:
+        raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
+    d = os.path.join(ckpt_dir, f"step_{step:010d}")
+    with open(os.path.join(d, MANIFEST)) as f:
+        manifest = json.load(f)
+    with np.load(os.path.join(d, ARRAYS)) as data, torch.no_grad():
+        for key, like in _flatten(like_tree):
+            arr = data[key]
+            if arr.shape != tuple(like.shape):
+                raise ValueError(f"{key}: checkpoint {arr.shape} vs model "
+                                 f"{tuple(like.shape)}")
+            like.copy_(torch.from_numpy(arr))
+    return like_tree, manifest
+
+
+class CheckpointManager:
+    """Keep-last-k checkpoints in one directory."""
+
+    def __init__(self, ckpt_dir: str, keep: int = 3):
+        self.dir = ckpt_dir
+        self.keep = keep
+
+    def save(self, step: int, tree: Mapping, extra=None) -> str:
+        path = save_checkpoint(self.dir, step, tree, extra)
+        self._gc()
+        return path
+
+    def restore(self, like_tree: Mapping, step: Optional[int] = None):
+        return load_checkpoint(self.dir, like_tree, step)
+
+    def latest(self) -> Optional[int]:
+        return latest_step(self.dir)
+
+    def _gc(self) -> None:
+        for s in _steps(self.dir)[:-self.keep]:
+            shutil.rmtree(os.path.join(self.dir, f"step_{s:010d}"),
+                          ignore_errors=True)

@@ -24,9 +24,10 @@ addresses and strides that are multiples of 16 bytes. On a CPU tensor it
 runs the plain version ``repro_torch.kernels.ref.attention_ref``; on any
 other device, or on inputs the kernel does not take, it raises. It never
 falls back from the kernel to the plain version, nor from one kernel to
-the other. The kernel has no backward: with grad enabled, an input off the
-CPU that requires grad raises (``ref.refuse_grad``) instead of giving an
-output with no ``grad_fn``.
+the other. When grad is enabled and an input requires grad, the launch
+goes through ``grad.KernelGrad``: the kernel's output, and a backward that
+recomputes ``attention_ref`` (with the same ``causal`` and ``scale``)
+under autograd; otherwise the kernel is launched directly.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.grad import kernel_with_grad
 
 HEAD_DIMS = (16, 32, 64, 112, 128)
 
@@ -98,18 +100,32 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: Optional[float] = None) -> torch.Tensor:
     """Attention (module docstring): the CUDA kernel for CUDA tensors,
     ``ref.attention_ref`` for CPU tensors."""
-    global launches
-    b, hq, hkv, _, s, t, d = ref.attention_dims(q, k, v)
+    d = ref.attention_dims(q, k, v)[6]
     devs = {x.device for x in (q, k, v)}
     if len(devs) != 1:
         raise ValueError(f"q, k and v lie on several devices: {devs}")
     scale = ref.default_scale(d) if scale is None else float(scale)
-    ref.refuse_grad("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, causal=causal, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not "
                          f"{q.device}")
+
+    def kernel(q, k, v):
+        return _launch(q, k, v, causal, scale)
+
+    def plain(q, k, v):
+        return ref.attention_ref(q, k, v, causal=causal, scale=scale)
+
+    return kernel_with_grad(kernel, plain, q, k, v)
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            causal: bool, scale: float) -> torch.Tensor:
+    """One launch of the kernel on CUDA inputs; checks what the kernel
+    takes (``kernel_strides``), counts the launch."""
+    global launches
+    b, hq, hkv, _, s, t, d = ref.attention_dims(q, k, v)
     strides = kernel_strides(q, k, v)
     o = torch.empty_like(q)                      # q's strides, d contiguous
     if o.numel() == 0:

@@ -23,10 +23,19 @@ loop over chunks for the carried state -- and is the plain version of the
 hand-written kernel ``repro_torch.kernels.ssd_scan`` (K3). Both compute in
 float32 and return ``x``'s dtype.
 
-``ssd_chunked`` selects the intra-chunk decay with ``torch.where``: above
-the diagonal ``A (cum_i - cum_j)`` is positive and its ``exp`` overflows
-to ``inf`` once a chunk's summed ``dt`` passes about 88 / |A|; a mask that
-multiplies (``inf * 0``) would turn that into NaN.
+``ssd_chunked`` masks the intra-chunk decay's exponent before the ``exp``:
+above the diagonal ``A (cum_i - cum_j)`` is positive, and its ``exp``
+overflows to ``inf`` once a chunk's summed ``dt`` passes about 88 / |A|.
+A mask that multiplies (``inf * 0``) turns that into NaN in the forward;
+a select after the ``exp`` keeps the forward finite but not the backward,
+which multiplies the masked zero gradient by ``exp``'s ``inf``. The
+exponent is set to ``-inf`` there, so ``exp`` gives exactly the 0 the
+select gave and no ``inf`` enters the graph.
+
+``attention_ref`` and ``ssd_chunked`` are the backward of the kernels on
+the card (``repro_torch.kernels.grad``). They compute in float32, or in
+float64 for float64 inputs (``wide``), so that the gradient check in
+float64 can run through them.
 """
 
 from __future__ import annotations
@@ -53,18 +62,9 @@ def attention_dims(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     return b, hq, hkv, hq // hkv, s, t, d
 
 
-def refuse_grad(name: str, *inputs: torch.Tensor) -> None:
-    """Raises when grad is enabled and an input that does not lie on the
-    CPU requires grad: the hand-written kernels have no backward, and their
-    output would silently carry no ``grad_fn``. On the CPU the plain
-    versions differentiate."""
-    held = [t for t in inputs if t.requires_grad and t.device.type != "cpu"]
-    if held and torch.is_grad_enabled():
-        raise RuntimeError(
-            f"{name}: an input on {held[0].device} requires grad, and the "
-            f"port's kernel has no backward yet (the training slice, "
-            f"ROADMAP.md queue 1, brings one); call it under "
-            f"torch.no_grad() or on tensors that do not require grad")
+def wide(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in float32, or as it is if float64."""
+    return t if t.dtype == torch.float64 else t.float()
 
 
 def default_scale(d: int) -> float:
@@ -79,8 +79,8 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B, Hq, S, D) in q's dtype; a fully-masked row is 0."""
     b, hq, hkv, g, s, t, d = attention_dims(q, k, v)
     scale = default_scale(d) if scale is None else scale
-    qf = q.float().reshape(b, hkv, g, s, d)
-    logits = torch.einsum("bhgsd,bhtd->bhgst", qf, k.float()) * scale
+    qf = wide(q).reshape(b, hkv, g, s, d)
+    logits = torch.einsum("bhgsd,bhtd->bhgst", qf, wide(k)) * scale
     if causal:
         mask = torch.ones((s, t), dtype=torch.bool,
                           device=q.device).tril(t - s)
@@ -91,7 +91,7 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.exp(logits - m)                  # exp(-inf) = 0 where masked
     denom = p.sum(dim=-1, keepdim=True)
     denom = torch.where(denom == 0, torch.ones((), device=q.device), denom)
-    out = torch.einsum("bhgst,bhtd->bhgsd", p, v.float()) / denom
+    out = torch.einsum("bhgst,bhtd->bhgsd", p, wide(v)) / denom
     return out.reshape(b, hq, s, d).to(q.dtype)
 
 
@@ -169,7 +169,7 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     pad = nc * Lc - seq
 
     def pad_seq(t):
-        t = t.float()
+        t = wide(t)
         if pad:
             t = torch.cat([t, t.new_zeros((t.shape[0], pad) + t.shape[2:])],
                           dim=1)
@@ -179,26 +179,30 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     dtf = pad_seq(dt).reshape(bsz, nc, Lc, h)
     Bf = pad_seq(B).reshape(bsz, nc, Lc, h, ds)
     Cf = pad_seq(C).reshape(bsz, nc, Lc, h, ds)
-    Af = A.float()
+    Af = wide(A)
 
     cum = torch.cumsum(dtf, dim=2)                       # (b, nc, Lc, h)
     cum_end = cum[:, :, -1:, :]                          # (b, nc, 1, h)
-    # intra-chunk decay L(i,j) = exp(A (cum_i - cum_j)) for i >= j, else 0
+    # intra-chunk decay L(i,j) = exp(A (cum_i - cum_j)) for i >= j, else 0;
+    # the exponent is masked to -inf before the exp (module docstring)
     diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (b,nc,i,j,h)
     tri = torch.ones((Lc, Lc), dtype=torch.bool, device=x.device).tril()
-    Ldec = torch.where(tri[None, None, :, :, None], torch.exp(Af * diff),
-                       torch.zeros((), device=x.device))
+    Ldec = torch.exp(torch.where(tri[None, None, :, :, None], Af * diff,
+                                 torch.full((), float("-inf"),
+                                            device=x.device)))
     cb = torch.einsum("bnihs,bnjhs->bnijh", Cf, Bf)
     w = cb * Ldec * dtf[:, :, None, :, :]
     y = torch.einsum("bnijh,bnjhd->bnihd", w, xf)
 
+    # The other three exps cannot overflow: A <= 0 and dt >= 0 (the models
+    # pass A = -exp(A_log) and dt = softplus(...)), so cum is non-decreasing
+    # within a chunk and each exponent below is <= 0.
     # chunk-boundary states: S_n = sum_j exp(A(cum_end - cum_j)) dt_j B_j x_j
     sdec = torch.exp(Af * (cum_end - cum)) * dtf         # (b, nc, Lc, h)
     Sn = torch.einsum("bnjh,bnjhs,bnjhd->bnhsd", sdec, Bf, xf)
     gamma = torch.exp(Af * cum_end[:, :, 0, :])          # (b, nc, h)
 
-    hprev = torch.zeros((bsz, h, ds, dh), dtype=torch.float32,
-                        device=x.device)
+    hprev = xf.new_zeros((bsz, h, ds, dh))
     hins = []                                            # state entering chunk
     for n in range(nc):
         hins.append(hprev)

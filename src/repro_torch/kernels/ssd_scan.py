@@ -27,10 +27,11 @@ the one entry point, never one in place of the other:
 
 On a CPU tensor it runs the plain version
 ``repro_torch.kernels.ref.ssd_chunked``; on any other device it raises. It
-never falls back from a kernel to the plain version. The kernels have no
-backward: with grad enabled, an input off the CPU that requires grad
-raises (``ref.refuse_grad``) instead of giving an output with no
-``grad_fn``.
+never falls back from a kernel to the plain version. When grad is enabled
+and an input requires grad, the launch goes through ``grad.KernelGrad``:
+the kernel's output, and a backward that recomputes ``ssd_chunked`` (with
+the same ``chunk``) under autograd; otherwise the kernel is launched
+directly.
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.grad import kernel_with_grad
 
 DEFAULT_CHUNK = 128
 # shapes the bfloat16 (tensor-core) kernel takes
@@ -97,14 +99,26 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              chunk: int = DEFAULT_CHUNK) -> torch.Tensor:
     """The SSD scan (module docstring): the CUDA kernel for CUDA tensors,
     ``ref.ssd_chunked`` for CPU tensors."""
-    global launches
     _check(x, dt, A, B, C)
-    ref.refuse_grad("ssd_scan", x, dt, A, B, C)
     if x.device.type == "cpu":
         # one chunk either way where chunk_of differs from min(chunk, seq)
         return ref.ssd_chunked(x, dt, A, B, C, chunk=chunk)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan runs on cuda or cpu, not {x.device}")
+
+    def kernel(x, dt, A, B, C):
+        return _launch(x, dt, A, B, C, chunk)
+
+    def plain(x, dt, A, B, C):
+        return ref.ssd_chunked(x, dt, A, B, C, chunk=chunk)
+
+    return kernel_with_grad(kernel, plain, x, dt, A, B, C)
+
+
+def _launch(x, dt, A, B, C, chunk: int) -> torch.Tensor:
+    """One launch of the kernel on CUDA inputs; checks what the kernel
+    takes, counts the launch."""
+    global launches
     if x.dtype not in (torch.float32, torch.bfloat16) or \
             B.dtype != x.dtype or C.dtype != x.dtype:
         raise ValueError(f"x, B and C must share one dtype, float32 or "

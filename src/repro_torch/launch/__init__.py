@@ -1,2 +1,2 @@
-"""Entry points of the port: batched serving (`serve`) and the warm
-broadcast-plan service (`planserver`)."""
+"""Entry points of the port: batched serving (`serve`), training on one
+device (`train`) and the warm broadcast-plan service (`planserver`)."""

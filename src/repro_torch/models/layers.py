@@ -1,7 +1,7 @@
 """Shared layers of the port's language models: dtype, RMSNorm, RoPE,
 initialisation, the attention block (GQA, RoPE, KV cache, TP head padding,
-cross-attention), the SwiGLU MLP, the mixture of experts, embedding and
-logits.
+cross-attention), the SwiGLU MLP, the mixture of experts, embedding,
+logits and the cross-entropy loss.
 
 The port of ``repro.models.layers``. The rounding follows the reference:
 ``rmsnorm`` normalises in float32, casts to ``x``'s dtype, then multiplies
@@ -94,6 +94,19 @@ def embed_init(cfg: ModelConfig, gen: torch.Generator) -> Dict:
 def logits_fn(cfg: ModelConfig, emb: Dict, h: torch.Tensor) -> torch.Tensor:
     h = rmsnorm(h, emb["final_norm"], cfg.norm_eps)
     return h @ emb["tok"].T
+
+
+def xent_loss(cfg: ModelConfig, logits: torch.Tensor,
+              labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross entropy in float32 over the padded vocab:
+    ``logsumexp`` minus the gold logit. The reference takes the gold logit
+    by a float32 one-hot contraction (for vocab sharding); ``gather`` gives
+    the same value, the sum having one non-zero term, without the one-hot
+    (525 MB at llama3.2-3b's 8 x 128 x 128,256)."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = lf.gather(-1, labels.to(lf.device, torch.long)[..., None])[..., 0]
+    return torch.mean(lse - gold)
 
 
 # ---------------------------------------------------------------------------

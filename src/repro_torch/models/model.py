@@ -14,6 +14,7 @@ layer), ``enc_attn.wq``, ``cross.wq``, ...), and the reference's
 
   m = LM(cfg)                                  # on cuda, weights from seed 0
   logits = m.forward(batch)                    # full sequence
+  loss = m.loss(batch)                         # mean next-token xent
   cache = m.init_cache(batch, max_seq, enc_len=0)
   logits, cache = m.prefill(batch, cache)
   logits, cache = m.decode_step(cache, tokens) # tokens (B, 1)
@@ -30,6 +31,10 @@ reference's docstring promises and its code does not do (it sets ``pos``
 and leaves k, v and ``enc`` at zero: ROADMAP queue 3, fault 4). As in the
 reference, an ssm or hybrid cache is left as it was (fault 2); the serve
 loop fills caches by teacher-forcing the prompt through ``decode_step``.
+
+Every parameter is built with ``requires_grad=False``, so that serving
+builds no autograd graph; a trainer turns gradients on with
+``m.requires_grad_(True)``, as ``runtime.steps.make_train_step`` does.
 """
 
 from __future__ import annotations
@@ -188,6 +193,17 @@ class LM(nn.Module):
             if cfg.attn_period and (i + 1) % cfg.attn_period == 0:
                 h = self._shared_block(h, pos)
         return h
+
+    def loss(self, batch: Dict) -> torch.Tensor:
+        """Mean next-token cross entropy of ``forward(batch)``: the labels
+        are ``tokens[:, 1:]`` followed by the last token again; a vlm's
+        logits drop their patch positions first."""
+        logits = self.forward(batch)
+        tokens = batch["tokens"].to(self.device, torch.long)
+        if self.cfg.family == "vlm" and "patches" in batch:
+            logits = logits[:, batch["patches"].shape[1]:]
+        labels = torch.cat([tokens[:, 1:], tokens[:, -1:]], dim=1)
+        return L.xent_loss(self.cfg, logits, labels)
 
     def init_cache(self, batch: int, max_seq: int,
                    enc_len: int = 0) -> Dict:

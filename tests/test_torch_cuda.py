@@ -275,23 +275,41 @@ def test_executable_calibrate_on_card(gpu, tmp_path):
     assert back == cost
 
 
-def test_kernels_refuse_grad_on_card(gpu):
-    """K2 and K3 have no backward: an input that requires grad raises while
-    grad is enabled; under ``no_grad`` the same call launches."""
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_gradients_are_the_plain_versions_on_card(gpu, dtype):
+    """With an input that requires grad, K2 and K3 launch once each (the
+    forward, counted) and their input gradients are bit-equal to autograd
+    through the plain versions on the same inputs; under ``no_grad`` the
+    same calls launch too, with no ``grad_fn``."""
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ref
     from repro_torch.kernels import ssd_scan as K
 
-    q, k, v = _attn_inputs(gpu, 3, 1, 4, 2, 64, 64, 64, torch.bfloat16)
-    with pytest.raises(RuntimeError, match="backward"):
-        FA.flash_attention(q.requires_grad_(), k, v)
-    args = _ssd_inputs(gpu, 3, 1, 64, 2, 32, 16, torch.bfloat16)
-    with pytest.raises(RuntimeError, match="backward"):
-        K.ssd_scan(args[0], args[1].requires_grad_(), *args[2:])
-    before = (FA.launches, K.launches)
-    with torch.no_grad():
-        FA.flash_attention(q, k, v)
-        K.ssd_scan(*args)
-    assert (FA.launches, K.launches) == (before[0] + 1, before[1] + 1)
+    dt_ = getattr(torch, dtype)
+    cases = [(FA.flash_attention,
+              lambda *a, c=causal: ref.attention_ref(*a, causal=c),
+              _attn_inputs(gpu, 3, 2, 4, 2, s, t, 64, dt_), dict(causal=causal))
+             for causal, s, t in ((True, 64, 64), (False, 16, 48),
+                                  (True, 20, 52))]
+    cases.append((K.ssd_scan, lambda *a: ref.ssd_chunked(*a, chunk=32),
+                  _ssd_inputs(gpu, 3, 1, 100, 2, 32, 16, dt_), dict(chunk=32)))
+    for fn, plain, inputs, kw in cases:
+        g = torch.Generator(device=gpu).manual_seed(1)
+        leaves = [t.clone().requires_grad_() for t in inputs]
+        before = (FA.launches, K.launches)
+        out = fn(*leaves, **kw)
+        launched = (FA.launches - before[0]) + (K.launches - before[1])
+        assert launched == 1 and out.grad_fn is not None
+        up = torch.randn(out.shape, device=gpu, generator=g).to(out.dtype)
+        got = torch.autograd.grad(out, leaves, up)
+        twins = [t.clone().requires_grad_() for t in inputs]
+        want = torch.autograd.grad(plain(*twins), twins, up)
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and torch.isfinite(a.float()).all()
+            assert torch.equal(a, b)
+        with torch.no_grad():
+            assert fn(*leaves, **kw).grad_fn is None
+        assert (FA.launches - before[0]) + (K.launches - before[1]) == 2
 
 
 SSD_SHAPES = [(1, 64, 2, 32, 16, 32), (2, 100, 4, 64, 32, 32),

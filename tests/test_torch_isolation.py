@@ -92,39 +92,6 @@ def test_rounds_never_take_the_plain_path_off_the_cpu():
         rs.permute_rounds(buf, moves)
 
 
-@pytest.mark.parametrize("kernel", ["flash_attention", "ssd_scan"])
-def test_kernels_refuse_grad_off_the_cpu(kernel):
-    """The hand-written kernels have no backward: an input off the CPU that
-    requires grad raises while grad is enabled, before the device dispatch
-    (``meta`` stands in for the card); on the CPU the plain versions
-    differentiate."""
-    from repro_torch.kernels import flash_attention as FA
-    from repro_torch.kernels import ssd_scan as K
-
-    def args(device, grad):
-        if kernel == "flash_attention":
-            shapes = ((1, 4, 8, 16), (1, 2, 8, 16), (1, 2, 8, 16))
-        else:
-            shapes = ((1, 8, 2, 16), (1, 8, 2), (2,), (1, 8, 2, 4),
-                      (1, 8, 2, 4))
-        g = torch.Generator().manual_seed(0)
-        out = [torch.randn(s, generator=g).to(device) for s in shapes]
-        if kernel == "ssd_scan":
-            out[2] = -out[2].abs()
-        out[1].requires_grad_(grad)
-        return out
-
-    fn = FA.flash_attention if kernel == "flash_attention" else K.ssd_scan
-    with pytest.raises(RuntimeError, match="no backward"):
-        fn(*args("meta", True))
-    with torch.no_grad():                        # no grad: the usual refusal
-        with pytest.raises(ValueError, match="cuda or cpu"):
-            fn(*args("meta", True))
-    cpu = args("cpu", True)
-    fn(*cpu).sum().backward()
-    assert cpu[1].grad is not None and torch.isfinite(cpu[1].grad).all()
-
-
 def test_device_config_validation():
     from repro_torch.core.simconfig import DeviceConfig, SimConfig
 
