@@ -156,16 +156,43 @@ Phases, each of which exits non-zero on failure:
    exactly 48 K3 launches a step, the step-6 checkpoint restored bit-equal
    to the state it saved, a fresh supervisor resuming from step 12 with no
    step run, steps 7-12 rerun from step 6 within 1e-3 of the first run's
-   losses; seconds a save and a restore; the directory removed).
+   losses; seconds a save and a restore; the directory removed);
+20. ``[sharded]``, the training step on a mesh (``runtime.sharding``,
+   ``runtime.steps`` on DTensors): llama3.2-3b at full width and depth,
+   8 x 128, lr 1e-3, in one spawned NCCL rank on a 1 x 1 ``("data",
+   "model")`` mesh, three ``make_train_step`` steps with params, moments
+   and batches placed by ``param_shardings``, ``opt_shardings`` and
+   ``batch_shardings``, then (the sharded run freed, its final parameters
+   on the host) the same three steps unsharded from the same weights:
+   losses, grad norms and every final parameter bit-equal, exactly 28 K2
+   launches a sharded step and none of K3, K1 or EC; ms a step of both,
+   the DTensor path's overhead, peak memory, the bytes of params, moments
+   and batch as allocated; one more unsharded step under
+   ``torch.profiler`` with ``with_flops``. With two GPUs or more,
+   ``(count // 2, 2)`` NCCL ranks run the sharded steps too, their losses
+   within 1e-2 of the one-device losses; on one GPU a line says that part
+   was not run;
+21. ``[dryrun]``: three ``python -m repro_torch.launch.dryrun``
+   subprocesses, CPU only (CUDA hidden), started when the script starts
+   and read here: llama3.2-3b ``train_4k`` on the 16 x 16 fake mesh,
+   mamba2-370m ``train_4k --multi-pod`` (2 x 16 x 16), and the
+   ``[sharded]`` cell (1 x 1, llama3.2-3b, 8 x 128 train); each record
+   printed; the ``[sharded]`` cell's ``argument_bytes`` equal to the
+   bytes the card allocated for params, moments and batch, its ``flops``
+   less K2's formula within 1e-3 of the profiler's matmul FLOPs of the
+   same step, its ``peak_bytes`` printed beside the card's
+   ``max_memory_allocated``.
 
 The last lines are one JSON line with the calibration readings, one with
 the distributed phase's (null on one GPU), one with the families'
-readings, one with the training section's, the card
+readings, one with the training section's, one with the sharded and
+dry-run phases' (``{"sharded": ..., "dryrun": ...}``), the card
 (``nvidia-smi`` name and power limit), one JSON line with every kernel, and
 ``{"ok": true, "device": {...}}``. Without a
 GPU, or without the repo beside it, it exits non-zero and prints no result.
 """
 
+import atexit
 import contextlib
 import ctypes
 import json
@@ -174,6 +201,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -2615,6 +2643,298 @@ def phase_train_cli(torch, FA, K, rs, KS, steps, store, train, sup_mod,
                 restore_s=restore_s, rerun_rel=rel)
 
 
+SHARDED_STEPS = 3                      # [sharded]: llama3.2-3b steps
+SHARDED_TOL = 1e-2                     # (n, 2) ranks against one device
+DRYRUNS = (("llama3.2-3b", "train_4k"),
+           ("mamba2-370m", "train_4k", "--multi-pod"))
+MATMULS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
+
+
+def start_dryruns(tmp):
+    """Start the ``[dryrun]`` subprocesses (``python -m
+    repro_torch.launch.dryrun``, CPU only: CUDA hidden, one thread each) so
+    that they run beside the card's phases: the two production cells of
+    ``DRYRUNS`` and the ``[sharded]`` cell (1 x 1, llama3.2-3b, 8 x 128
+    train). Returns ``{name: (Popen, output path)}``; ``stop`` ends them."""
+    import subprocess as sp
+    env = dict(os.environ, PYTHONPATH=SRC, CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="1")
+    cells = [dict(name=f"{c[0]} {c[1]}" + (" multi-pod" if c[2:] else ""),
+                  argv=["--arch", c[0], "--shape", c[1], *c[2:]])
+             for c in DRYRUNS]
+    cells.append(dict(name="sharded cell", argv=[
+        "--arch", "llama3.2-3b", "--shape", "train_4k", "--mesh", "1x1",
+        "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ)]))
+    out = {}
+    for c in cells:
+        path = os.path.join(tmp, c["name"].replace(" ", "_") + ".log")
+        f = open(path, "w")
+        out[c["name"]] = (sp.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *c["argv"]],
+            stdout=f, stderr=sp.STDOUT, env=env, cwd=ROOT), path, f)
+    return out
+
+
+def stop(procs):
+    for p, _, f in procs.values():
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+        f.close()
+
+
+def sharded_rank(rank, world, model_axis, store, out, backend="nccl",
+                 device="cuda", cfg_name="llama3.2-3b", smoke=False):
+    """One rank of ``[sharded]``: ``SHARDED_STEPS`` steps of
+    ``make_train_step`` on a ``(world // model_axis, model_axis)`` mesh,
+    params, moments and batches placed by ``param_shardings``,
+    ``opt_shardings`` and ``batch_shardings``; K2, K3, K1 and EC launches a
+    step; ms a step; the bytes of params, moments and batch as allocated;
+    the peak memory; the final parameters gathered to the host. With
+    ``world`` 1 the same steps then run unsharded from the same seed-0
+    weights (the sharded run freed first), one more unsharded step under
+    ``torch.profiler`` with ``with_flops``, and rank 0 writes both runs to
+    ``out.json``."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, SRC)
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.core import kernelsim as KS
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.device import round_step as rs
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ssd_scan as K
+    from repro_torch.models.model import LM
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.runtime import steps
+
+    if device == "cuda":
+        torch.cuda.set_device(rank)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(backend, store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    cfg = get_config(cfg_name)
+    cfg = cfg.smoke() if smoke else cfg
+    data = SyntheticTokens(cfg, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+
+    def nbytes(t):
+        t = t.to_local() if hasattr(t, "to_local") else t
+        return t.numel() * t.element_size()
+
+    def run(mesh):
+        model = LM(cfg, device=device)
+        step = steps.make_train_step(model, lr=TRAIN_LR)
+        params = dict(model.named_parameters())
+        opt = adamw_init(params)
+        if mesh is not None:
+            params = steps.place_params(
+                model, steps.param_shardings(mesh, model, params))
+            opt = steps.place(adamw_init(params),
+                              steps.opt_shardings(mesh, model, params))
+        res = dict(loss=[], grad_norm=[], ms=[], launches=[])
+        if device == "cuda":
+            sync()
+            torch.cuda.reset_peak_memory_stats()
+        for i in range(SHARDED_STEPS):
+            batch = data.batch(i)
+            if mesh is not None:
+                batch = steps.place(batch, steps.batch_shardings(
+                    mesh, cfg, batch))
+            if i == 0:
+                res["argument_bytes"] = sum(nbytes(t) for t in (
+                    *params.values(), *opt["mu"].values(),
+                    *opt["nu"].values(), opt["step"], *batch.values()))
+            reset_counts(FA, K, rs, KS)
+            sync()
+            t0 = time.perf_counter()
+            _, opt, met = step(params, opt, batch)
+            res["loss"].append(float(met["loss"]))
+            res["grad_norm"].append(float(met["grad_norm"]))
+            sync()
+            res["ms"].append((time.perf_counter() - t0) * 1e3)
+            res["launches"].append(list(counts(FA, K, rs, KS)))
+        if device == "cuda":
+            res["peak"] = torch.cuda.max_memory_allocated()
+        final = {k: (p.full_tensor() if hasattr(p, "full_tensor") else p)
+                 .detach().to("cpu", copy=True) for k, p in params.items()}
+        if mesh is None:
+            batch = data.batch(SHARDED_STEPS)
+            sync()
+            with profile(activities=[ProfilerActivity.CPU],
+                         with_flops=True) as prof:
+                step(params, opt, batch)
+                sync()
+            res["profiler_flops"] = sum(
+                e.flops for e in prof.key_averages() if e.key in MATMULS)
+        del model, step, params, opt, batch
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        return res, final
+
+    try:
+        mesh = init_device_mesh(device, (world // model_axis, model_axis),
+                                mesh_dim_names=("data", "model"))
+        sharded, final = run(mesh)
+        res = dict(sharded=sharded)
+        if world == 1:
+            plain, plain_final = run(None)
+            res["plain"] = plain
+            res["params_equal"] = all(torch.equal(final[k], plain_final[k])
+                                      for k in final)
+            res["params"] = len(final)
+    finally:
+        dist.destroy_process_group()
+    if rank == 0:
+        with open(f"{out}.json", "w") as f:
+            json.dump(res, f)
+
+
+def spawn_ranks(fn, world, args, what, timeout=600):
+    """``fn(rank, world, *args, store, out)`` in ``world`` spawned ranks;
+    fails on a rank that does not exit 0; returns rank 0's JSON."""
+    import multiprocessing as mp
+    import tempfile
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "rank")
+        procs = [ctx.Process(target=fn, args=(
+            r, world, *args[:1], os.path.join(tmp, "store"), out,
+            *args[1:])) for r in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + timeout
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+        codes = [p.exitcode for p in procs]
+        if codes != [0] * world:
+            fail(f"[{what}] rank exit codes {codes}")
+        with open(f"{out}.json") as f:
+            return json.load(f)
+
+
+def phase_sharded(torch, layers, backend="nccl", device="cuda", count=None,
+                  **kw):
+    """llama3.2-3b at full width and depth, 8 x 128, on a 1 x 1
+    ``("data", "model")`` mesh in one spawned NCCL rank: ``SHARDED_STEPS``
+    steps on DTensors, then the same steps unsharded from the same weights.
+    Gates: losses, grad norms and final parameters bit-equal; exactly one K2
+    launch a layer a sharded step, none of K3, K1 or EC. With two GPUs or
+    more, ``(count // 2, 2)`` NCCL ranks run the sharded steps too, their
+    losses within ``SHARDED_TOL`` relative of the one-device losses; on one
+    GPU that part is not run, and a line says so. ``backend``, ``device``,
+    ``count`` (the cards) and ``kw`` (``cfg_name``, ``smoke``) let a CPU
+    rehearsal run it on gloo. Returns the readings."""
+    t0 = time.perf_counter()
+    res = spawn_ranks(sharded_rank, 1, (1, backend, device, *kw.values()),
+                      "sharded")
+    sh, pl = res["sharded"], res["plain"]
+    want = [layers, 0, 0, 0, 0, 0]
+    if any(n != want for n in sh["launches"]):
+        fail(f"[sharded] launches (K2, K3, K1 x2, EC x2) a step "
+             f"{sh['launches']}, expected {want} each step")
+    for k in ("loss", "grad_norm"):
+        if sh[k] != pl[k]:
+            fail(f"[sharded] {k} on the 1 x 1 mesh {sh[k]} is not bit-equal "
+                 f"to the unsharded step's {pl[k]}")
+    if not res["params_equal"]:
+        fail("[sharded] final parameters on the 1 x 1 mesh differ from the "
+             "unsharded step's")
+    log(f"[sharded] 1 x 1 mesh, {SHARDED_STEPS} steps at {TRAIN_BATCH}x"
+        f"{TRAIN_SEQ}: losses {sh['loss']} and grad norms {sh['grad_norm']} "
+        f"bit-equal to the unsharded step's, all {res['params']} final "
+        f"parameters bit-equal; {layers} K2 launches a sharded step, none of "
+        f"K3, K1, EC; ms a step sharded {sh['ms']} against unsharded "
+        f"{pl['ms']} (host clock ended by a synchronize); peak "
+        f"{sh.get('peak')} B sharded, {pl.get('peak')} B unsharded; "
+        f"argument bytes {sh['argument_bytes']}")
+    res["overhead_ms"] = min(sh["ms"][1:]) - min(pl["ms"][1:]) \
+        if len(sh["ms"]) > 1 else None
+    if count is None:
+        count = torch.cuda.device_count() if device == "cuda" else 1
+    if count < 2:
+        log(f"[sharded] (n, 2) NCCL ranks not run: {count} GPU visible, "
+            f"and NCCL cannot put two ranks on one GPU; the multi-rank step "
+            f"is held on four gloo ranks by tests/test_torch_sharding.py")
+        res["multi"] = None
+    else:
+        world = (count // 2) * 2
+        multi = spawn_ranks(sharded_rank, world, (2, backend, device,
+                                                  *kw.values()),
+                            "sharded")["sharded"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(multi["loss"],
+                                                       pl["loss"]))
+        if rel > SHARDED_TOL:
+            fail(f"[sharded] ({world // 2}, 2) ranks' losses "
+                 f"{multi['loss']} vs one device {pl['loss']}: {rel!r} > "
+                 f"{SHARDED_TOL}")
+        if any(n != want for n in multi["launches"]):
+            fail(f"[sharded] ({world // 2}, 2) ranks: rank 0's launches a "
+                 f"step {multi['launches']}, expected {want}")
+        log(f"[sharded] ({world // 2}, 2) {backend} ranks: losses "
+            f"{multi['loss']} within {rel!r} of one device's (bound "
+            f"{SHARDED_TOL}); rank 0's launches a step {multi['launches']}; "
+            f"ms a step {multi['ms']}; rank 0's peak {multi.get('peak')} B")
+        res["multi"] = multi
+    res["secs"] = time.perf_counter() - t0
+    log(f"[sharded] phase time {res['secs']:.1f} s")
+    return res
+
+
+def phase_dryrun(procs, sharded, layers, attn_flops):
+    """Waits for the ``start_dryruns`` subprocesses and prints each record.
+    The ``[sharded]`` cell's record: ``argument_bytes`` equal to the bytes
+    of params, moments and batch that the card allocated; ``flops`` less
+    K2's formula (the profiler sees no ctypes launch) within 1e-3 relative
+    of ``torch.profiler``'s matmul FLOPs for the same step (the unsharded
+    twin: on a mesh the profiler counts each product twice, at the DTensor
+    op and at its local op); ``peak_bytes`` beside
+    ``torch.cuda.max_memory_allocated()``, a reading. Returns the
+    records."""
+    t0 = time.perf_counter()
+    recs = {}
+    for name, (p, path, f) in procs.items():
+        try:
+            rc = p.wait(timeout=max(1.0, 900 - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            stop(procs)
+            fail(f"[dryrun] {name} did not finish")
+        f.flush()
+        with open(path) as fh:
+            text = fh.read()
+        if rc != 0:
+            fail(f"[dryrun] {name} exited {rc}: {text[-3000:]}")
+        rec = json.loads(text.strip().splitlines()[-1])
+        recs[name] = rec
+        log(f"[dryrun] {name}: {json.dumps(rec)}")
+    stop(procs)
+    rec = recs["sharded cell"]
+    card = sharded["sharded"]["argument_bytes"]
+    if rec["memory"]["argument_bytes"] != card:
+        fail(f"[dryrun] sharded cell argument_bytes "
+             f"{rec['memory']['argument_bytes']} != {card} allocated on the "
+             f"card")
+    seen = rec["flops"] - layers * attn_flops
+    prof = sharded["plain"]["profiler_flops"]
+    if abs(seen - prof) > 1e-3 * prof:
+        fail(f"[dryrun] sharded cell flops less K2's ({seen!r}) vs "
+             f"torch.profiler's matmul FLOPs {prof!r}")
+    log(f"[dryrun] sharded cell: argument_bytes {card} equal to the card's "
+        f"allocation; flops {rec['flops']!r} ({seen!r} without K2's "
+        f"{layers} x {attn_flops!r}) against the profiler's {prof!r} "
+        f"(bound 1e-3 relative); peak_bytes {rec['memory']['peak_bytes']} "
+        f"beside the card's max_memory_allocated "
+        f"{sharded['sharded'].get('peak')} B")
+    return recs
+
+
 def main():
     try:
         import torch
@@ -2641,6 +2961,9 @@ def main():
     from repro_torch.models.model import LM
 
     t_start = time.perf_counter()
+    dry_tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    dryruns = start_dryruns(dry_tmp)
+    atexit.register(stop, dryruns)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     name = card()
@@ -2796,6 +3119,26 @@ def main():
         f"{cli['restore_s']!r} s; the [train] section took "
         f"{train_secs:.1f} s")
     train_res = dict(loss_grads=tloss, llama=tr, cli=cli, secs=train_secs)
+
+    from repro_torch.models.layers import padded_heads
+    from repro_torch.runtime.cost import attention_cost
+    t_new = time.perf_counter()
+    sharded = phase_sharded(torch, dcfg.layers)
+    hq, hkv, _ = padded_heads(dcfg)
+    attn_flops = attention_cost(
+        torch.empty((TRAIN_BATCH, hq, TRAIN_SEQ, dcfg.hd), device="meta"),
+        torch.empty((TRAIN_BATCH, hkv, TRAIN_SEQ, dcfg.hd),
+                    device="meta"))[0]
+    t_dry = time.perf_counter()
+    dry = phase_dryrun(dryruns, sharded, dcfg.layers, attn_flops)
+    log(f"[summary] {name}: sharded llama3.2-3b on a 1 x 1 mesh "
+        f"{min(sharded['sharded']['ms'][1:])!r} ms a step against "
+        f"{min(sharded['plain']['ms'][1:])!r} unsharded (least of steps "
+        f"2-{SHARDED_STEPS}; DTensor overhead {sharded['overhead_ms']!r} ms), "
+        f"bit-equal; the dry-run records waited "
+        f"{time.perf_counter() - t_dry:.1f} s after [sharded]; the two "
+        f"phases took "
+        f"{time.perf_counter() - t_new:.1f} s")
     train_k2 = {f"{dcfg.name} train step": dcfg.layers,
                 f"{dcfg.name} loss {TRAIN_BATCH}x{TRAIN_SEQ}": dcfg.layers}
     train_k3 = {f"{mcfg.name} train step (CLI)": mcfg.layers,
@@ -2835,7 +3178,8 @@ def main():
         "host_ms": at["host_ms"], "d112_ms": at["d112_ms"],
         "launches_by_family": {"llama3.2-3b": dpf["launches"], **{
             arch: r["k2"] for arch, r in fam.items()}},
-        "launches_by_path": train_k2,
+        "launches_by_path": {**train_k2, f"{dcfg.name} sharded train "
+                             f"step (1 x 1 mesh)": dcfg.layers},
         "backward": "plain recompute: attention_ref under autograd "
                     "(kernels/grad.py KernelGrad)",
         "new_shapes": at["new_shapes"],
@@ -2898,6 +3242,7 @@ def main():
     print(json.dumps({"distributed": dist_res}), flush=True)
     print(json.dumps({"families": fam}), flush=True)
     print(json.dumps({"train": train_res}), flush=True)
+    print(json.dumps({"sharded": sharded, "dryrun": dry}), flush=True)
     print(name, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -14,9 +14,15 @@ either package restores in the other.
 Restore copies each array into the live tensor of ``like_tree``, on that
 tensor's device and in its dtype, after checking its shape; a key of
 ``like_tree`` missing from the file raises ``KeyError``, as in the
-reference. Like the reference (ROADMAP reference fault 8), restore fans
-nothing out with BBS; re-placing on a new mesh waits for the sharding
-slice.
+reference. With ``shardings`` (a tree of ``(mesh, placements)`` like
+``like_tree``, as ``runtime.steps`` builds them) it returns a new tree
+instead, each array distributed from rank 0 with ``distribute_tensor`` onto
+that mesh: the reference's elastic restore, ``device_put(array,
+sharding)``. On a mesh (DTensor leaves) a save gathers each tensor whole
+(``full_tensor``, on every rank), rank 0 writes the reference's format and
+every rank waits at a barrier for it; an in-place restore distributes each
+array like the live DTensor it replaces. Like the reference (ROADMAP
+reference fault 8), restore fans nothing out with BBS.
 """
 
 from __future__ import annotations
@@ -30,6 +36,8 @@ from typing import Any, Dict, Iterator, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 MANIFEST = "manifest.json"
 ARRAYS = "arrays.npz"
@@ -46,8 +54,14 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...] = (),
             yield "/".join(path), v
 
 
+def _sharded(tree: Mapping) -> bool:
+    return any(isinstance(v, DTensor) for _, v in _flatten(tree))
+
+
 def _to_numpy(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
+        if isinstance(leaf, DTensor):
+            leaf = leaf.full_tensor()
         t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:
             t = t.float()             # lossless; load narrows it again
@@ -57,11 +71,22 @@ def _to_numpy(leaf) -> np.ndarray:
 
 def save_checkpoint(ckpt_dir: str, step: int, tree: Mapping,
                     extra: Optional[Dict] = None) -> str:
-    os.makedirs(ckpt_dir, exist_ok=True)
     final = os.path.join(ckpt_dir, f"step_{step:010d}")
+    arrays = {k: _to_numpy(v) for k, v in _flatten(tree)}
+    if _sharded(tree):
+        if dist.get_rank() == 0:
+            _write(ckpt_dir, final, step, arrays, extra)
+        dist.barrier()
+    else:
+        _write(ckpt_dir, final, step, arrays, extra)
+    return final
+
+
+def _write(ckpt_dir: str, final: str, step: int, arrays: Dict,
+           extra: Optional[Dict]) -> None:
+    os.makedirs(ckpt_dir, exist_ok=True)
     tmp = tempfile.mkdtemp(prefix=".tmp_ckpt_", dir=ckpt_dir)
     try:
-        arrays = {k: _to_numpy(v) for k, v in _flatten(tree)}
         np.savez(os.path.join(tmp, ARRAYS), **arrays)
         manifest = dict(step=step, time=time.time(),
                         keys=sorted(arrays), extra=extra or {},
@@ -74,7 +99,6 @@ def save_checkpoint(ckpt_dir: str, step: int, tree: Mapping,
     except BaseException:
         shutil.rmtree(tmp, ignore_errors=True)
         raise
-    return final
 
 
 def _steps(ckpt_dir: str) -> List[int]:
@@ -92,9 +116,12 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 
 def load_checkpoint(ckpt_dir: str, like_tree: Mapping,
-                    step: Optional[int] = None) -> Tuple[Mapping, Dict]:
+                    step: Optional[int] = None,
+                    shardings: Optional[Mapping] = None,
+                    ) -> Tuple[Mapping, Dict]:
     """Restore step ``step`` (the newest by default) into the tensors of
-    ``like_tree`` in place; returns ``(like_tree, manifest)``."""
+    ``like_tree`` in place, or, with ``shardings``, into a new tree placed
+    by them (module docstring); returns ``(tree, manifest)``."""
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
         raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
@@ -102,13 +129,36 @@ def load_checkpoint(ckpt_dir: str, like_tree: Mapping,
     with open(os.path.join(d, MANIFEST)) as f:
         manifest = json.load(f)
     with np.load(os.path.join(d, ARRAYS)) as data, torch.no_grad():
-        for key, like in _flatten(like_tree):
-            arr = data[key]
-            if arr.shape != tuple(like.shape):
-                raise ValueError(f"{key}: checkpoint {arr.shape} vs model "
-                                 f"{tuple(like.shape)}")
-            like.copy_(torch.from_numpy(arr))
-    return like_tree, manifest
+        tree = _restore(data, like_tree, shardings, ())
+    return (like_tree if shardings is None else tree), manifest
+
+
+def _restore(data, like_tree: Mapping, shardings: Optional[Mapping],
+             prefix: Tuple[str, ...]) -> Dict:
+    out = {}
+    for k, like in like_tree.items():
+        path = prefix + tuple(str(k).split("."))
+        if isinstance(like, Mapping):
+            out[k] = _restore(data, like, None if shardings is None
+                              else shardings[k], path)
+            continue
+        key = "/".join(path)
+        arr = data[key]
+        if arr.shape != tuple(like.shape):
+            raise ValueError(f"{key}: checkpoint {arr.shape} vs model "
+                             f"{tuple(like.shape)}")
+        src = torch.from_numpy(arr)
+        if shardings is not None:
+            mesh, pls = shardings[k]
+            out[k] = distribute_tensor(
+                src.to(like.dtype).to(mesh.device_type), mesh, pls)
+        elif isinstance(like, DTensor):
+            like.copy_(distribute_tensor(
+                src.to(like.dtype).to(like.device_mesh.device_type),
+                like.device_mesh, like.placements))
+        else:
+            like.copy_(src)
+    return out
 
 
 class CheckpointManager:
@@ -123,8 +173,9 @@ class CheckpointManager:
         self._gc()
         return path
 
-    def restore(self, like_tree: Mapping, step: Optional[int] = None):
-        return load_checkpoint(self.dir, like_tree, step)
+    def restore(self, like_tree: Mapping, shardings=None,
+                step: Optional[int] = None):
+        return load_checkpoint(self.dir, like_tree, step, shardings)
 
     def latest(self) -> Optional[int]:
         return latest_step(self.dir)

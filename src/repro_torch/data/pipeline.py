@@ -8,7 +8,9 @@ LM loss has signal (pure uniform tokens give flat loss).
 The numpy generation is the reference's (``repro.data.pipeline``), draw for
 draw, so a (seed, step) gives the same tokens in both packages; the batch
 holds CPU tensors (tokens int32, patches and frames float32), which the
-model moves to its device.
+model moves to its device. ``batch_logical_dims`` and ``make_batch_specs``
+are the reference's: the logical dims of a batch for the sharding rules,
+and a cell's inputs as ``(shape, dtype)`` stand-ins.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeCell
 
 
 @dataclasses.dataclass
@@ -48,3 +50,29 @@ class SyntheticTokens:
             f = rng.standard_normal((b, s, self.cfg.d_model)) * 0.02
             batch["frames"] = torch.from_numpy(f.astype(np.float32))
         return batch
+
+
+def batch_logical_dims(cfg: ModelConfig) -> Dict[str, tuple]:
+    dims = dict(tokens=("batch", "seq"))
+    if cfg.family == "vlm":
+        dims["patches"] = ("batch", None, None)
+    if cfg.family == "encdec":
+        dims["frames"] = ("batch", "seq", None)
+    return dims
+
+
+def make_batch_specs(cfg: ModelConfig, cell: ShapeCell,
+                     for_decode: bool = False) -> Dict:
+    """``(shape, dtype)`` stand-ins for a cell's inputs (the dry-run's)."""
+    b, s = cell.global_batch, cell.seq_len
+    if for_decode:
+        return dict(tokens=((b, 1), torch.int32))
+    out = dict(tokens=((b, s), torch.int32))
+    if cfg.family == "vlm":
+        out["tokens"] = ((b, s - cfg.num_patches), torch.int32)
+        out["patches"] = ((b, cfg.num_patches, cfg.d_model), torch.float32)
+    if cfg.family == "encdec":
+        # half the budget on source frames, half on target tokens
+        out["tokens"] = ((b, s // 2), torch.int32)
+        out["frames"] = ((b, s // 2, cfg.d_model), torch.float32)
+    return out

@@ -36,6 +36,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
@@ -61,6 +62,23 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.reciprocal(1 + torch.exp(-x))
 
 
+def split_heads(t: torch.Tensor, heads: int) -> torch.Tensor:
+    """(..., heads * d) -> (..., heads, d). On a mesh, DTensor cannot view
+    a last dim that a mesh axis splits into parts of partial heads (the
+    reference's GSPMD splits mid-head): that axis is gathered first, so
+    its ranks hold whole heads."""
+    if isinstance(t, DTensor):
+        from torch.distributed.tensor import Replicate, Shard
+
+        last = t.dim() - 1
+        pl = [Replicate() if isinstance(p, Shard) and p.dim == last and
+              heads % t.device_mesh.size(i) else p
+              for i, p in enumerate(t.placements)]
+        if pl != list(t.placements):
+            t = t.redistribute(t.device_mesh, pl)
+    return t.reshape(*t.shape[:-1], heads, t.shape[-1] // heads)
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor,
          theta: float) -> torch.Tensor:
     """x: (..., S, H, D); positions: (..., S)."""
@@ -75,7 +93,18 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+class NoDraw:
+    """Stands in for the generator where weights need shapes only (the
+    dry-run's abstract state): ``_init`` then returns an empty tensor on
+    ``device``, ``meta`` or a fake tensor's, and draws nothing."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+
+
 def _init(gen: torch.Generator, shape, scale=None, dtype=torch.float32):
+    if isinstance(gen, NoDraw):
+        return torch.empty(shape, dtype=dtype, device=gen.device)
     scale = scale if scale is not None else 1.0 / (shape[-2] ** 0.5
                                                    if len(shape) > 1 else 1.0)
     out = torch.randn(shape, generator=gen, dtype=torch.float32,
@@ -91,9 +120,69 @@ def embed_init(cfg: ModelConfig, gen: torch.Generator) -> Dict:
                                       device=gen.device))
 
 
+def embed_dims() -> Dict:
+    return dict(tok=("vocab", "d_model"), final_norm=(None,))
+
+
+def gather_fsdp(w: torch.Tensor) -> torch.Tensor:
+    """On a mesh, a weight made whole over the data axes (its FSDP shards
+    gathered for this use, as GSPMD does in the reference) and still split
+    over ``model``; a plain tensor as it is. Its gradient goes back to the
+    shards by a reduce-scatter (the redistribution's backward)."""
+    if not isinstance(w, DTensor):
+        return w
+    from torch.distributed.tensor import Replicate
+
+    names = w.device_mesh.mesh_dim_names
+    pl = [Replicate() if names[i] in ("pod", "data") else p
+          for i, p in enumerate(w.placements)]
+    return w if pl == list(w.placements) else \
+        w.redistribute(w.device_mesh, pl)
+
+
+def embed_lookup(tok: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``tok[ids]``. On a mesh (``tok`` gathered over the data axes, its
+    vocab split over ``model`` by the ``vocab`` rule; ``ids``
+    batch-sharded) it runs on local shards through ``local_map``: each
+    rank of the model axis looks up the ids in its vocab shard and gives
+    zeros for the others, a ``Partial`` sum over ``model`` that the
+    caller's ``pin`` all-reduces. DTensor's own ``index`` strategy leaves
+    a gradient whose ``index_put`` some torch versions cannot place."""
+    if not isinstance(tok, DTensor):
+        return tok[ids]
+    from torch.distributed.tensor import Partial, Shard
+    from torch.distributed.tensor.experimental import local_map
+    from repro_torch.runtime import sharding as shd
+
+    mesh = tok.device_mesh
+    names = mesh.mesh_dim_names
+    ip = shd.placements(mesh, shd.spec_for(
+        mesh, ("batch",) + (None,) * (ids.dim() - 1), ids.shape))
+    split = [i for i, p in enumerate(tok.placements)
+             if p == Shard(0) and mesh.size(i) > 1]
+    out = [Partial() if i in split else p for i, p in enumerate(ip)]
+    first, v_here = 0, tok.shape[0]
+    if split:
+        (i,) = split
+        v_here //= mesh.size(i)
+        first = mesh.get_local_rank(names[i]) * v_here
+
+    def local(t, x):
+        if not split:
+            return t[x]
+        here = (x >= first) & (x < first + v_here)
+        rows = t[torch.where(here, x - first, 0)]
+        return torch.where(here[..., None], rows, 0.0).to(t.dtype)
+
+    pls = (list(tok.placements), list(ip))
+    return local_map(local, out_placements=out, in_placements=pls,
+                     in_grad_placements=shd.grad_placements(pls),
+                     device_mesh=mesh, redistribute_inputs=True)(tok, ids)
+
+
 def logits_fn(cfg: ModelConfig, emb: Dict, h: torch.Tensor) -> torch.Tensor:
     h = rmsnorm(h, emb["final_norm"], cfg.norm_eps)
-    return h @ emb["tok"].T
+    return h @ gather_fsdp(emb["tok"]).T
 
 
 def xent_loss(cfg: ModelConfig, logits: torch.Tensor,
@@ -103,9 +192,59 @@ def xent_loss(cfg: ModelConfig, logits: torch.Tensor,
     by a float32 one-hot contraction (for vocab sharding); ``gather`` gives
     the same value, the sum having one non-zero term, without the one-hot
     (525 MB at llama3.2-3b's 8 x 128 x 128,256)."""
+    if isinstance(logits, DTensor):
+        return _xent_sharded(cfg, logits, labels)
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
     gold = lf.gather(-1, labels.to(lf.device, torch.long)[..., None])[..., 0]
+    return torch.mean(lse - gold)
+
+
+def _xent_sharded(cfg: ModelConfig, logits: torch.Tensor,
+                  labels: torch.Tensor) -> torch.Tensor:
+    """``xent_loss`` on a mesh: logits (B, S, V) batch-sharded over the data
+    axes and, by the ``vocab`` rule, split in V over ``model``, as they
+    leave ``logits_fn``; labels batch-sharded. Where V is not split over
+    more than one rank, the plain loss runs on each batch shard through
+    ``local_map`` (so a 1 x 1 mesh computes it bit for bit). Otherwise the
+    vocab-parallel form: the max and the sum of exponentials reduce over
+    the vocab shards (DTensor all-reduces them), and the gold logit comes
+    from the one shard that holds each label (``local_map``, summed over
+    ``model``), since DTensor's ``gather`` on a split dim has no working
+    strategy here. The result: the mean over the batch shard, averaged
+    over the data axes."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    from repro_torch.runtime import sharding as shd
+
+    mesh = logits.device_mesh
+    names = mesh.mesh_dim_names
+    lp = shd.placements(mesh, shd.spec_for(mesh, ("batch", None, "vocab"),
+                                           logits.shape))
+    logits = logits.redistribute(mesh, lp)
+    bp = [Shard(0) if p == Shard(0) else Replicate() for p in lp]
+    split = [i for i, p in enumerate(lp) if p == Shard(2) and mesh.size(i) > 1]
+    labels = labels.to(torch.long).redistribute(mesh, bp)
+    mean = [Partial("avg") if p == Shard(0) else Replicate() for p in lp]
+    if not split:
+        return local_map(lambda lg, lb: xent_loss(cfg, lg, lb),
+                         out_placements=mean, in_placements=(lp, bp),
+                         device_mesh=mesh)(logits, labels)
+    lf = logits.float()
+    m = lf.detach().amax(dim=-1, keepdim=True)
+    lse = torch.log(torch.exp(lf - m).sum(dim=-1)) + m[..., 0]
+    (i,) = split
+    v_here = logits.shape[-1] // mesh.size(i)
+    first = mesh.get_local_rank(names[i]) * v_here
+
+    def gold_here(lg, lb):
+        here = (lb >= first) & (lb < first + v_here)
+        g = lg.gather(-1, torch.where(here, lb - first, 0)[..., None])
+        return torch.where(here, g[..., 0], 0.0)
+
+    gp = [Partial() if j == i else p for j, p in enumerate(bp)]
+    gold = local_map(gold_here, out_placements=gp, in_placements=(lp, bp),
+                     device_mesh=mesh)(lf, labels)
     return torch.mean(lse - gold)
 
 
@@ -179,6 +318,14 @@ def attn_init(cfg: ModelConfig, gen: torch.Generator, layers: int) -> Dict:
     )
 
 
+def attn_dims() -> Dict:
+    return dict(wq=("layers", "d_model", "heads_x_hd"),
+                wk=("layers", "d_model", "kv_x_hd"),
+                wv=("layers", "d_model", "kv_x_hd"),
+                wo=("layers", "heads_x_hd", "d_model"),
+                norm=("layers", None))
+
+
 def attn_apply(cfg: ModelConfig, p: Dict, x: torch.Tensor,
                positions: torch.Tensor, causal: bool = True,
                kv: Optional[Tuple[torch.Tensor]] = None,
@@ -202,25 +349,56 @@ def attn_apply(cfg: ModelConfig, p: Dict, x: torch.Tensor,
     h = rmsnorm(x, p["norm"], cfg.norm_eps)
     src = h if kv is None else kv[0]
     kv_len = src.shape[1]
-    q = (h @ p["wq"]).reshape(b, s, hq_p, hd)
-    k = (src @ p["wk"]).reshape(b, kv_len, hkv_p, hd)
-    v = (src @ p["wv"]).reshape(b, kv_len, hkv_p, hd)
+    q = split_heads(h @ p["wq"], hq_p)
+    k = split_heads(src @ p["wk"], hkv_p)
+    v = split_heads(src @ p["wv"], hkv_p)
     if kv is None:                     # self-attention: rotate q and k
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
     q, k, v = (t.transpose(1, 2) for t in (q, k, v))   # (B, H, S, hd) views
     if cache is not None:
-        idx = positions[0]
-        cache["k"].index_copy_(2, idx, k)
-        cache["v"].index_copy_(2, idx, v)
-        out = _masked_decode_attention(q, cache["k"], cache["v"],
-                                       cache["pos"] + s)
+        out = _cached_attention(q, k, v, cache["k"], cache["v"],
+                                positions[0], cache["pos"] + s)
     else:
         if fill is not None:
             fill[0][:, :, :s].copy_(k)
             fill[1][:, :, :s].copy_(v)
         out = ops.attention(q, k, v, causal=causal and kv is None)
     return out.transpose(1, 2).reshape(b, s, hq_p * hd) @ p["wo"]
+
+
+def _cached_attention(q, k, v, ck, cv, idx, valid_len) -> torch.Tensor:
+    """Write this step's k and v at positions ``idx`` of one layer's cache
+    (``ck``, ``cv``: (B, Hkv_p, T, hd)) in place, then attend to the keys
+    before ``valid_len``.
+
+    On a mesh it runs on local shards through ``local_map``: the cache
+    keeps the placements ``cache_shardings`` gave it (a redistributed copy
+    would take the write), and q, k and v are redistributed to match it,
+    batch and heads alike; ``idx`` and ``valid_len`` are replicated. A
+    cache whose sequence dim is sharded (``kv_seq`` or ``long_seq`` on a
+    mesh axis) would need a softmax across ranks and raises
+    ``NotImplementedError``; with ``tp_pad`` 16, every configuration's kv
+    heads split over a model axis of 16, and the rules then leave the
+    sequence whole."""
+    if isinstance(ck, DTensor):
+        from torch.distributed.tensor import Replicate, Shard
+        from torch.distributed.tensor.experimental import local_map
+
+        pl = list(ck.placements)
+        if any(isinstance(x, Shard) and x.dim >= 2 for x in pl):
+            raise NotImplementedError(
+                f"decode attention on a cache sharded along its sequence "
+                f"({ck.placements}): a softmax across ranks is not ported")
+        whole = [Replicate()] * len(pl)
+        return local_map(_cached_attention, out_placements=pl,
+                         in_placements=(pl,) * 5 + (whole, whole),
+                         device_mesh=ck.device_mesh,
+                         redistribute_inputs=True)(q, k, v, ck, cv, idx,
+                                                   valid_len)
+    ck.index_copy_(2, idx, k)
+    cv.index_copy_(2, idx, v)
+    return _masked_decode_attention(q, ck, cv, valid_len)
 
 
 def _masked_decode_attention(q: torch.Tensor, k: torch.Tensor,
@@ -256,6 +434,13 @@ def mlp_init(cfg: ModelConfig, gen: torch.Generator, layers: int,
                                 device=gen.device))
 
 
+def mlp_dims() -> Dict:
+    return dict(w1=("layers", "d_model", "d_ff"),
+                w3=("layers", "d_model", "d_ff"),
+                w2=("layers", "d_ff", "d_model"),
+                norm=("layers", None))
+
+
 def mlp_apply(cfg: ModelConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:
     h = rmsnorm(x, p["norm"], cfg.norm_eps)
     return (silu(h @ p["w1"]) * (h @ p["w3"])) @ p["w2"]
@@ -274,6 +459,14 @@ def moe_init(cfg: ModelConfig, gen: torch.Generator, layers: int) -> Dict:
                 w3=_init(gen, (layers, e, dm, f), dtype=dt),
                 w2=_init(gen, (layers, e, f, dm), dtype=dt),
                 norm=torch.ones((layers, dm), dtype=dt, device=gen.device))
+
+
+def moe_dims() -> Dict:
+    return dict(router=("layers", "d_model", None),
+                w1=("layers", "experts", "d_model", "expert_ff"),
+                w3=("layers", "experts", "d_model", "expert_ff"),
+                w2=("layers", "experts", "expert_ff", "d_model"),
+                norm=("layers", None))
 
 
 def capacity(cfg: ModelConfig, s: int) -> int:
@@ -303,24 +496,78 @@ def moe_route(cfg: ModelConfig, p: Dict, h: torch.Tensor):
     return gates, topi, topv, arrival, arrival < capacity(cfg, s)
 
 
-def moe_apply(cfg: ModelConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:
+def moe_apply(cfg: ModelConfig, p: Dict, x: torch.Tensor,
+              first_expert: int = 0) -> torch.Tensor:
     """Top-k capacity dispatch: within a batch row each expert takes at most
     ``capacity`` (token, choice) pairs in arrival order and drops the rest
-    (module docstring)."""
+    (module docstring). On a mesh see ``moe_sharded``; there ``p`` holds
+    the experts ``first_expert, ...`` of one shard, and the pairs routed to
+    other experts add nothing here."""
+    if isinstance(x, DTensor):
+        return moe_sharded(cfg, p, x)
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.top_k
+    e_here = p["w1"].shape[0]
     cap = capacity(cfg, s)
     h = rmsnorm(x, p["norm"], cfg.norm_eps)
     _, topi, topv, arrival, keep = moe_route(cfg, p, h)
+    if e_here < e:
+        here = (topi >= first_expert) & (topi < first_expert + e_here)
+        keep = keep & here
+        topi = torch.where(here, topi - first_expert, 0)
     # each (token, choice) pair's slot in its expert's queue; a dropped pair
     # goes to a spare slot ``cap`` that no expert reads (no host sync)
     slot = torch.where(keep, arrival, cap)
     rows = torch.arange(b, device=h.device)[:, None, None].expand(b, s, k)
-    xin = torch.zeros((e, b, cap + 1, d), dtype=h.dtype, device=h.device)
+    xin = torch.zeros((e_here, b, cap + 1, d), dtype=h.dtype,
+                      device=h.device)
     xin[topi, rows, slot] = h[:, :, None, :].expand(b, s, k, d)
-    xin = xin[:, :, :cap].reshape(e, b * cap, d)
+    xin = xin[:, :, :cap].reshape(e_here, b * cap, d)
     hmid = silu(torch.bmm(xin, p["w1"])) * torch.bmm(xin, p["w3"])
-    xout = torch.bmm(hmid, p["w2"]).reshape(e, b, cap, d)
+    xout = torch.bmm(hmid, p["w2"]).reshape(e_here, b, cap, d)
     out = xout[topi, rows, slot.clamp(max=cap - 1)].float()   # (B, S, k, D)
     y = ((topv * keep)[..., None] * out).sum(dim=2)
     return y.to(x.dtype)
+
+
+def moe_sharded(cfg: ModelConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:
+    """``moe_apply`` on a mesh. DTensor has no sharding strategy for the
+    dispatch's ``index_put`` with tensor indices, so the layer runs on
+    local shards through ``local_map``, its inputs redistributed
+    explicitly: x batch-sharded as the residual stream is (``pin``),
+    whole on ``model``; the router and norm replicated; the experts split
+    over ``model`` by the ``experts`` rule, each whole in ``d_model`` (the
+    FSDP shards are gathered). Every rank of the model axis routes all
+    tokens of its batch shard, runs its own experts, and returns their
+    share of each token's sum: ``Partial`` on ``model``, summed where the
+    caller adds it to the residual. Where the experts do not split, every
+    rank runs all of them and the output is replicated."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    from repro_torch.runtime import sharding as shd
+
+    mesh = x.device_mesh
+    names = list(shd.mesh_axes(mesh))
+    batch = shd.placements(mesh, shd.spec_for(mesh, ("batch", None, None),
+                                              x.shape))
+    split = "model" in names and shd.resolve_dim(
+        mesh, "experts", cfg.num_experts) == "model"
+    experts = shd.placements(mesh, ("model",) if split else (None,))
+    whole = [Replicate()] * len(names)
+    out = list(batch)
+    first = 0
+    if split:
+        out[names.index("model")] = Partial()
+        first = mesh.get_local_rank("model") * \
+            (cfg.num_experts // mesh.size(names.index("model")))
+    keys = ("router", "w1", "w3", "w2", "norm")
+    pls = (list(batch),) + tuple(
+        list(experts) if k in ("w1", "w3", "w2") else whole for k in keys)
+
+    def local(x, *ws):
+        return moe_apply(cfg, dict(zip(keys, ws)), x, first)
+
+    return local_map(local, out_placements=out, in_placements=pls,
+                     in_grad_placements=shd.grad_placements(pls),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        x, *(p[k] for k in keys))

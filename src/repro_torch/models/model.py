@@ -21,6 +21,22 @@ layer), ``enc_attn.wq``, ``cross.wq``, ...), and the reference's
 
 ``batch`` holds ``tokens`` (B, S), and ``patches`` (B, P, D) for a vlm
 (optional, as in the reference) or ``frames`` (B, T, D) for an encdec.
+``LM(cfg, remat="dots")`` recomputes each decoder layer in the backward
+(``torch.utils.checkpoint``), as the reference's ``remat`` does with
+``jax.checkpoint`` of its block; the default ``"none"`` keeps every
+activation. ``LM(cfg, device="meta", seed=None)`` builds the shapes only
+(every weight an empty tensor; the dry-run's abstract state).
+``param_dims()`` and ``cache_dims()`` give the logical dims of the
+sharding rules (``runtime.sharding``), keyed by state-dict name and cache
+key.
+
+On a mesh (parameters, batch and cache placed as DTensors by
+``runtime.steps``) the same code runs on DTensors: ``pin`` redistributes
+the residual stream at every residual add, each layer's weights are
+gathered over the data axes for their use, and the ops DTensor has no
+working strategy for run on local shards through ``local_map``
+(``layers``, ``mamba2``, ``kernels.ops``).
+
 ``decode_step`` updates the cache tensors in place (the reference returns
 new arrays) and returns the same dict. ``prefill`` returns the forward
 logits; for the attention families (dense, vlm, moe, encdec) it also
@@ -43,10 +59,12 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
+from repro_torch.runtime import sharding as shd
 
 FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
 ATTENTION_FAMILIES = ("dense", "vlm", "moe", "encdec")
@@ -59,13 +77,31 @@ def _frozen(tree: Dict) -> nn.ParameterDict:
 
 
 def _slice(tree: nn.ParameterDict, i: int) -> Dict[str, torch.Tensor]:
-    return {k: v[i] for k, v in tree.items()}
+    """Layer ``i``'s weights; on a mesh each is gathered over the data
+    axes for this use (``layers.gather_fsdp``): ``layers`` is never split,
+    so the slice itself stays local."""
+    return {k: L.gather_fsdp(v[i]) for k, v in tree.items()}
+
+
+def pin(x: torch.Tensor) -> torch.Tensor:
+    """The reference's ``LM._pin``: on a mesh, (B, S, ...) batch-sharded
+    over the data axes (the ``batch`` rule) and replicated over the rest,
+    its gradient alike (``sharding.constrain``). The reference leaves
+    ``d_model`` unconstrained; here it is replicated, so every layer starts
+    from whole rows, and the partial sums that the column-split matmuls
+    leave in the gradient on ``model`` are all-reduced here, once a layer.
+    A plain tensor is returned as it is."""
+    return shd.constrain(x, ("batch",) + (None,) * (x.dim() - 1))
 
 
 class LM(nn.Module):
-    def __init__(self, cfg: ModelConfig, device="cuda", seed: int = 0):
+    def __init__(self, cfg: ModelConfig, device="cuda",
+                 seed: Optional[int] = 0, remat: str = "none"):
         super().__init__()
         fam = cfg.family
+        if remat not in ("none", "dots"):
+            raise ValueError(f"remat {remat!r} is not 'none' or 'dots'")
+        self.remat = remat
         if fam not in FAMILIES:
             raise NotImplementedError(
                 f"family {fam!r} is not one of the reference's: "
@@ -75,7 +111,8 @@ class LM(nn.Module):
             raise RuntimeError("LM runs on cuda unless device='cpu' is "
                                "given, and this host has no CUDA GPU")
         self.cfg = cfg
-        gen = torch.Generator(device=device).manual_seed(seed)
+        gen = L.NoDraw(device) if seed is None else \
+            torch.Generator(device=device).manual_seed(seed)
         self.embed = _frozen(L.embed_init(cfg, gen))
         if fam in ("ssm", "hybrid"):
             self.mamba = _frozen(M.mamba_init(cfg, gen, cfg.layers))
@@ -95,6 +132,33 @@ class LM(nn.Module):
                 (fam == "moe" and cfg.dense_residual):
             self.mlp = _frozen(L.mlp_init(cfg, gen, cfg.layers))
 
+    def param_dims(self) -> Dict[str, Tuple]:
+        """The logical dims of every parameter, by state-dict name, for the
+        sharding rules (``runtime.sharding``)."""
+        groups = dict(embed=L.embed_dims(), mamba=M.mamba_dims(),
+                      shared_attn=L.attn_dims(), shared_mlp=L.mlp_dims(),
+                      enc_attn=L.attn_dims(), enc_mlp=L.mlp_dims(),
+                      attn=L.attn_dims(), cross=L.attn_dims(),
+                      moe=L.moe_dims(), mlp=L.mlp_dims())
+        return {name: groups[name.split(".")[0]][name.split(".")[1]]
+                for name, _ in self.named_parameters()}
+
+    def cache_dims(self) -> Dict[str, Tuple]:
+        """Logical dims of the cache tensors (for sharding rules)."""
+        fam = self.cfg.family
+        d: Dict = dict(pos=())
+        if fam in ATTENTION_FAMILIES or fam == "hybrid":
+            d["k"] = ("layers", "batch", "kv_heads", "kv_seq", None)
+            d["v"] = ("layers", "batch", "kv_heads", "kv_seq", None)
+        if fam == "encdec":
+            d["enc"] = ("batch", None, None)
+        if fam in ("ssm", "hybrid"):
+            d["conv_x"] = ("layers", "batch", None, "d_inner")
+            d["conv_B"] = ("layers", "batch", None, "bc_dim")
+            d["conv_C"] = ("layers", "batch", None, "bc_dim")
+            d["ssm"] = ("layers", "batch", "ssm_heads", None, None)
+        return d
+
     @property
     def device(self) -> torch.device:
         return self.embed["tok"].device
@@ -108,7 +172,8 @@ class LM(nn.Module):
         return cfg.layers // cfg.attn_period
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.embed["tok"][tokens.to(self.device, torch.long)]
+        tok = L.gather_fsdp(self.embed["tok"])
+        return L.embed_lookup(tok, tokens.to(self.device, torch.long))
 
     def _embed_inputs(self, batch: Dict) -> torch.Tensor:
         """(B, S, D): a vlm's patches, cast to the model's dtype, before the
@@ -124,13 +189,17 @@ class LM(nn.Module):
         return self._forward(batch, None)
 
     def _forward(self, batch: Dict, cache: Optional[Dict]) -> torch.Tensor:
+        with shd.implicit_replication(self.embed["tok"]):
+            return self._forward_stack(batch, cache)
+
+    def _forward_stack(self, batch: Dict, cache: Optional[Dict]):
         cfg = self.cfg
-        h = self._embed_inputs(batch)
+        h = pin(self._embed_inputs(batch))
         b, s, _ = h.shape
         pos = torch.arange(s, device=self.device).expand(b, s)
         if cfg.family == "ssm":
             for i in range(cfg.layers):
-                h = h + M.mamba_apply(cfg, _slice(self.mamba, i), h)
+                h = pin(h + M.mamba_apply(cfg, _slice(self.mamba, i), h))
         elif cfg.family == "hybrid":
             h = self._hybrid_stack(h, pos)
         else:
@@ -139,16 +208,27 @@ class LM(nn.Module):
                 enc = self._encoder(batch["frames"])
                 if cache is not None:
                     cache["enc"].copy_(enc)
+            remat = self.remat != "none" and torch.is_grad_enabled()
             for i in range(cfg.layers):
                 fill = None if cache is None else \
                     (cache["k"][i], cache["v"][i])
-                h = h + L.attn_apply(cfg, _slice(self.attn, i), h, pos,
-                                     fill=fill)
-                if enc is not None:
-                    h = h + L.attn_apply(cfg, _slice(self.cross, i), h, pos,
-                                         causal=False, kv=(enc,))
-                h = h + self._ffn(i, h)
+                if remat:
+                    h = checkpoint(self._block, i, h, pos, enc, fill,
+                                   use_reentrant=False)
+                else:
+                    h = self._block(i, h, pos, enc, fill)
         return L.logits_fn(cfg, self.embed, h)
+
+    def _block(self, i, h, pos, enc, fill) -> torch.Tensor:
+        """Decoder layer ``i``: self-attention, cross-attention to ``enc``
+        (an encdec), the MLP or experts; each residual add pinned."""
+        cfg = self.cfg
+        h = pin(h + L.attn_apply(cfg, _slice(self.attn, i), h, pos,
+                                 fill=fill))
+        if enc is not None:
+            h = pin(h + L.attn_apply(cfg, _slice(self.cross, i), h, pos,
+                                     causal=False, kv=(enc,)))
+        return pin(h + self._ffn(i, h))
 
     def _ffn(self, i: int, x: torch.Tensor) -> torch.Tensor:
         """Layer ``i``'s MLP, or its experts (plus the MLP beside them when
@@ -169,9 +249,9 @@ class LM(nn.Module):
         b, t, _ = h.shape
         pos = torch.arange(t, device=self.device).expand(b, t)
         for i in range(cfg.enc_layers):
-            h = h + L.attn_apply(cfg, _slice(self.enc_attn, i), h, pos,
-                                 causal=False)
-            h = h + L.mlp_apply(cfg, _slice(self.enc_mlp, i), h)
+            h = pin(h + L.attn_apply(cfg, _slice(self.enc_attn, i), h, pos,
+                                     causal=False))
+            h = pin(h + L.mlp_apply(cfg, _slice(self.enc_mlp, i), h))
         return h
 
     def _shared_block(self, h, pos, cache=None, app=0) -> torch.Tensor:
@@ -180,16 +260,16 @@ class LM(nn.Module):
         cfg = self.cfg
         lc = None if cache is None else \
             dict(k=cache["k"][app], v=cache["v"][app], pos=cache["pos"])
-        h = h + L.attn_apply(cfg, _slice(self.shared_attn, 0), h, pos,
-                             cache=lc)
-        return h + L.mlp_apply(cfg, _slice(self.shared_mlp, 0), h)
+        h = pin(h + L.attn_apply(cfg, _slice(self.shared_attn, 0), h, pos,
+                                 cache=lc))
+        return pin(h + L.mlp_apply(cfg, _slice(self.shared_mlp, 0), h))
 
     def _hybrid_stack(self, h, pos) -> torch.Tensor:
         """``attn_period`` Mamba-2 blocks, then the shared block, applied
         ``num_attn_apps`` times; then the remaining Mamba-2 blocks."""
         cfg = self.cfg
         for i in range(cfg.layers):
-            h = h + M.mamba_apply(cfg, _slice(self.mamba, i), h)
+            h = pin(h + M.mamba_apply(cfg, _slice(self.mamba, i), h))
             if cfg.attn_period and (i + 1) % cfg.attn_period == 0:
                 h = self._shared_block(h, pos)
         return h
@@ -199,11 +279,12 @@ class LM(nn.Module):
         are ``tokens[:, 1:]`` followed by the last token again; a vlm's
         logits drop their patch positions first."""
         logits = self.forward(batch)
-        tokens = batch["tokens"].to(self.device, torch.long)
-        if self.cfg.family == "vlm" and "patches" in batch:
-            logits = logits[:, batch["patches"].shape[1]:]
-        labels = torch.cat([tokens[:, 1:], tokens[:, -1:]], dim=1)
-        return L.xent_loss(self.cfg, logits, labels)
+        with shd.implicit_replication(logits):
+            tokens = batch["tokens"].to(self.device, torch.long)
+            if self.cfg.family == "vlm" and "patches" in batch:
+                logits = logits[:, batch["patches"].shape[1]:]
+            labels = torch.cat([tokens[:, 1:], tokens[:, -1:]], dim=1)
+            return L.xent_loss(self.cfg, logits, labels)
 
     def init_cache(self, batch: int, max_seq: int,
                    enc_len: int = 0) -> Dict:
@@ -257,14 +338,18 @@ class LM(nn.Module):
                                 {k: cache[k][i] for k in _SSM_CACHE_KEYS})
         for k in _SSM_CACHE_KEYS:
             cache[k][i].copy_(new[k])
-        return h + out
+        return pin(h + out)
 
     def decode_step(self, cache: Dict, tokens: torch.Tensor,
                     ) -> Tuple[torch.Tensor, Dict]:
         """One token step. tokens: (B, 1). Updates ``cache`` in place. A
         vlm decodes text only (the reference's has no patch path)."""
+        with shd.implicit_replication(self.embed["tok"]):
+            return self._decode_stack(cache, tokens)
+
+    def _decode_stack(self, cache: Dict, tokens: torch.Tensor):
         cfg = self.cfg
-        h = self._embed(tokens)                          # (B, 1, D)
+        h = pin(self._embed(tokens))                     # (B, 1, D)
         pos = cache["pos"]
         positions = pos.long().expand(h.shape[0], 1)
         if cfg.family == "ssm":
@@ -280,11 +365,12 @@ class LM(nn.Module):
             enc = cache.get("enc")
             for i in range(cfg.layers):
                 lc = dict(k=cache["k"][i], v=cache["v"][i], pos=pos)
-                h = h + L.attn_apply(cfg, _slice(self.attn, i), h,
-                                     positions, cache=lc)
+                h = pin(h + L.attn_apply(cfg, _slice(self.attn, i), h,
+                                         positions, cache=lc))
                 if enc is not None:
-                    h = h + L.attn_apply(cfg, _slice(self.cross, i), h,
-                                         positions, causal=False, kv=(enc,))
-                h = h + self._ffn(i, h)
+                    h = pin(h + L.attn_apply(cfg, _slice(self.cross, i), h,
+                                             positions, causal=False,
+                                             kv=(enc,)))
+                h = pin(h + self._ffn(i, h))
         cache["pos"] += 1
         return L.logits_fn(cfg, self.embed, h), cache

@@ -21,9 +21,10 @@ import torch
 
 def adamw_init(params: Mapping[str, torch.Tensor]) -> Dict:
     """``mu`` and ``nu``: float32 zeros shaped like each parameter, on its
-    device; ``step``: an int32 zero on the first parameter's device."""
+    device (on a mesh, placed like it); ``step``: an int32 zero on the
+    first parameter's device."""
     def zeros():
-        return {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return {k: torch.zeros_like(p, dtype=torch.float32)
                 for k, p in params.items()}
 
     dev = next(iter(params.values())).device

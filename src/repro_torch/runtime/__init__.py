@@ -1,2 +1,3 @@
-"""The training runtime on one device: the train step and the supervisor,
-ported from ``repro.runtime``."""
+"""The training runtime, ported from ``repro.runtime``: the train and serve
+steps with their sharding helpers, the logical-axis rules, the supervisor,
+gradient compression, and the dry-run's cost accounting."""

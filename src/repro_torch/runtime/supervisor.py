@@ -1,5 +1,5 @@
 """The fault-tolerant training supervisor, the port of
-``repro.runtime.supervisor`` on one device.
+``repro.runtime.supervisor``.
 
   * periodic atomic checkpoints (keep-last-k) and resume from a newer one;
   * step retry: an exception in a step (an injected fault, a non-finite
@@ -14,8 +14,11 @@ reference's functional step, the port's updates the state in place, so a
 rollback copies the checkpoint into the live tensors; a step that fails
 after its update with no checkpoint yet is retried from the state it left
 (a non-finite loss then repeats until the retries run out and it raises,
-as the reference's deterministic retry does). ``remesh`` (elastic
-rescale) waits for the sharding slice (ROADMAP queue 1 item 3).
+as the reference's deterministic retry does). On a mesh the state is
+DTensors, and the checkpoints gather and re-place them
+(``checkpoint.store``). ``remesh(state, new_shardings)`` is the elastic
+rescale: every tensor re-placed on the new mesh from its whole value
+(``runtime.steps.place``), as the reference re-places with ``device_put``.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import time
 from typing import Any, Callable, Dict, List, Optional
 
 from repro_torch.checkpoint.store import CheckpointManager
+from repro_torch.runtime.steps import place
 
 log = logging.getLogger("repro_torch.supervisor")
 
@@ -126,3 +130,9 @@ class TrainSupervisor:
     def _restore(self, like_state, step):
         like = dict(params=like_state["params"], opt=like_state["opt"])
         return self.ckpt.restore(like, step=step)
+
+
+def remesh(state: Dict, new_shardings: Dict) -> Dict:
+    """Elastic rescale: re-place every tensor with the new mesh's shardings
+    (the caller built ``new_shardings`` from the surviving ranks)."""
+    return place(state, new_shardings)

@@ -301,6 +301,6 @@ def test_train_main_needs_a_gpu_unless_told(monkeypatch, tmp_path):
             str(tmp_path)]
     with pytest.raises(RuntimeError, match="cuda"):
         train.main(args)
-    with pytest.raises(NotImplementedError, match="sharding"):
+    with pytest.raises(ValueError, match="process group"):
         train.main(args + ["--model-axis", "2"], device="cpu")
     assert latest_step(str(tmp_path)) is None

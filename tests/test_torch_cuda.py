@@ -926,3 +926,30 @@ def test_event_core_runs_the_largest_sweep_list(gpu, monkeypatch):
     want = CompiledSim(topo, cm, 0).run_lowered(ctl)
     assert (got.finish_time, got.deliveries, got.node_finish) == \
         (want.finish_time, want.deliveries, want.node_finish)
+
+
+def test_cuda_tensors_never_take_the_shape_ops(gpu):
+    """A CUDA tensor goes to K2 and K3 through ``ops``, never to the
+    dry-run's fake-only ``attention_shape`` / ``ssd_shape``, whose
+    implementation for a tensor with data raises."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as K
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q = torch.randn((1, 2, 16, 32), device="cuda", generator=g)
+    k = torch.randn((1, 2, 16, 32), device="cuda", generator=g)
+    before = FA.launches
+    ops.attention(q, k, k)
+    assert FA.launches == before + 1
+    with pytest.raises(RuntimeError, match="fake and meta"):
+        ops.attention_shape(q, k, k, True)
+    x = torch.randn((1, 32, 2, 32), device="cuda", generator=g)
+    dt = torch.rand((1, 32, 2), device="cuda", generator=g)
+    bc = torch.randn((1, 32, 2, 16), device="cuda", generator=g)
+    a = -torch.rand((2,), device="cuda", generator=g)
+    before = K.launches
+    ops.ssd(x, dt, a, bc, bc)
+    assert K.launches == before + 1
+    with pytest.raises(RuntimeError, match="fake and meta"):
+        ops.ssd_shape(x, dt, a, bc, bc)

@@ -179,3 +179,43 @@ def test_import_schedule_checks_shapes():
                              num_relay=0, root=0, perms=[[]],
                              send_rel=t, recv_rel=t, send_abs=t,
                              recv_abs=t))
+
+
+def test_shape_ops_serve_fake_and_meta_tensors_only():
+    """The dry-run's stand-ins for K2 and K3 (``ops.attention_shape``,
+    ``ops.ssd_shape``) give the output's shape for a meta or fake tensor;
+    for a tensor with data they raise. ``ops`` routes fake tensors only
+    there (a CUDA tensor goes to the kernel: ``tests/test_torch_cuda.py``;
+    a meta tensor to the kernel's wrapper, which raises:
+    ``test_torch_attention`` / ``test_torch_ssd``)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.kernels import ops
+
+    q = torch.zeros((1, 2, 8, 16))
+    assert not ops._abstract(q)
+    with pytest.raises(RuntimeError, match="fake and meta"):
+        ops.attention_shape(q, q, q, True)
+    x, dt = torch.zeros((1, 8, 2, 16)), torch.zeros((1, 8, 2))
+    b, a = torch.zeros((1, 8, 2, 4)), torch.zeros((2,))
+    with pytest.raises(RuntimeError, match="fake and meta"):
+        ops.ssd_shape(x, dt, a, b, b)
+    m = q.to("meta")
+    assert not ops._abstract(m)
+    assert ops.attention_shape(m, m, m, True).shape == q.shape
+    with FakeTensorMode() as fake:
+        f = fake.from_tensor(x)
+        assert ops._abstract(f)
+        y = ops.ssd(f, fake.from_tensor(dt), fake.from_tensor(a),
+                    fake.from_tensor(b), fake.from_tensor(b))
+        assert y.shape == x.shape and y.dtype == x.dtype
+
+
+def test_meshes_touch_no_distributed_state_on_import():
+    """Importing the mesh and dry-run modules starts no process group; a
+    host mesh without one raises."""
+    import torch.distributed as dist
+    from repro_torch.launch import dryrun, mesh  # noqa: F401
+
+    assert not dist.is_initialized()
+    with pytest.raises(ValueError, match="process group"):
+        mesh.make_host_mesh(2)
