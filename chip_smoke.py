@@ -65,8 +65,17 @@ Phases, each of which exits non-zero on failure:
    private resource each;
 8. the distributed executor (``repro_torch.device.distributed``) over
    ``min(8, device_count)`` NCCL ranks, one GPU each, bit for bit against
-   the virtual mesh, when the machine has two GPUs or more; on one GPU a
-   line says it was not run and why;
+   the virtual mesh, when the machine has two GPUs or more; then, across
+   those ranks, ``calibrate(ring(world), group=WORLD)`` at the ring ladder
+   (the same cost on every rank, the ring delivered, alpha >= 0, beta > 0,
+   ``cuda-nccl`` and not emulated, one ``permute_step`` launch a ring
+   sub-round on each rank), the artifact stored under its group key and
+   reloaded equal, and ``prediction_report`` of BBS, ``binomial`` and
+   ``pipeline`` at 4 and 16 MiB on ``ring(world)`` (and ``mesh2d(2, world
+   / 2)`` at 4 or 8 ranks), each verified on every rank, predicted and
+   measured finite and positive; alpha, beta, each size's round and each
+   row's times and ``rel_err`` are readings; on one GPU a line says it
+   was not run and why;
 9. hold K3 against its plain version (``ssd_chunked``) on the card: the
    Mamba-2 370M prefill shape in bf16, a ragged sequence, float32, the
    overflow regime (dt = 2, A = -1, where a multiplied mask gives NaN),
@@ -446,7 +455,72 @@ def phase_kernel_vs_plain(np, torch, rs):
                      f"3 random sub-rounds")
     del buf
     torch.cuda.empty_cache()
+    group_path_vs_plain(torch, rs)
     return worst
+
+
+def group_path_vs_plain(torch, rs):
+    """``permute_step`` against ``permute_step_ref`` at the distributed
+    executor's shapes (``repro_torch.device.distributed``): one rank's
+    ``[1, rows + 1, row]`` buffer with K1's tables of its writes
+    (``local_writes``), for the calibration ring at every size of
+    ``CAL_RING_SIZES`` and for every rank of the 16 MiB BBS, ``binomial``
+    and ``pipeline`` broadcasts on ring 4 and mesh2d 2 x 2. The buffer
+    starts random; before each of the writes ``distributed.run`` makes, the
+    staging row gets fresh random bytes, as a receive gives it; the whole
+    buffer is held bit-exact after every write."""
+    import importlib
+    from repro_torch import api
+    from repro_torch.core import topology as T
+    from repro_torch.core.simconfig import DeviceConfig, SimConfig
+    from repro_torch.device import distributed as D
+    from repro_torch.device import runner
+    C = importlib.import_module("repro_torch.device.calibrate")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+
+    def check(rows, row_bytes, tabs, what):
+        local = D.local_writes(tabs, rows)
+        got = torch.randint(0, 256, (1, rows + 1, row_bytes),
+                            dtype=torch.uint8, device=dev, generator=g)
+        ref = got.clone()
+        tab = torch.from_numpy(local).to(dev)
+        writes = [k for k in range(len(local)) if local[k, 4, 0]]
+        for k in writes:
+            fresh = torch.randint(0, 256, (row_bytes,), dtype=torch.uint8,
+                                  device=dev, generator=g)
+            got[0, rows] = fresh
+            ref[0, rows] = fresh
+            rs.permute_step_ref(ref, tab[k])
+            rs.permute_step(got, tab[k])
+            if not torch.equal(got, ref):
+                fail(f"kernel differs from plain version: {what}, "
+                     f"sub-round {k}, by up to "
+                     f"{max_byte_diff(torch, got, ref)}")
+        return len(writes)
+
+    for size in CAL_RING_SIZES:
+        row = C.ring_row_bytes(size)
+        tabs, _ = D.ring_tables(1, 4, CAL_ITERS)
+        k = check(2, row, tabs, f"group ring {size} B")
+        log(f"[kernel] bit-exact: group calibration ring, [1, 3, {row}] "
+            f"buffer, {k} writes")
+    cfg = SimConfig(device=DeviceConfig(device="cuda"))
+    for fabric in (T.ring(4), T.mesh2d(2, 2)):
+        model = api.compile(fabric)
+        for algo in ("bbs", "binomial", "pipeline"):
+            ex = model.executable(root=0, nbytes=DIST_NBYTES, algo=algo,
+                                  config=cfg)
+            lay = runner.packet_layout(ex.default_payload(), ex.schedule,
+                                       ex.num_groups)
+            k = sum(check(lay.rows, lay.row_bytes,
+                          D.bbs_tables(ex.schedule, ex.num_groups, me)[0],
+                          f"{fabric.name} {algo} rank {me}")
+                    for me in range(fabric.num_nodes))
+            log(f"[kernel] bit-exact: group {fabric.name} {algo} "
+                f"{DIST_NBYTES} B, [1, {lay.rows + 1}, {lay.row_bytes}] "
+                f"buffers of {fabric.num_nodes} ranks, {k} writes")
+    torch.cuda.empty_cache()
 
 
 def phase_rounds_vs_plain(np, torch, rs):
@@ -1127,7 +1201,8 @@ def eventcore_times(torch, KS, stat, dt, rate, key):
 def distributed_rank(rank, world, backend, device, store, out):
     """One rank of ``phase_distributed``: ring ``world`` BBS broadcasts from
     roots 0 and world - 1 across the group, each rank's copy against the
-    virtual mesh's on this rank's device and against the payload; writes
+    virtual mesh's on this rank's device and against the payload, each
+    timed by ``ex.measure(x, reps=3, group=WORLD)``; writes
     ``out.<rank>.json``."""
     import torch
     import torch.distributed as dist
@@ -1149,33 +1224,91 @@ def distributed_rank(rank, world, backend, device, store, out):
             mine = ex.run(x, group=dist.group.WORLD)
             virtual = ex.run(x)[rank]
             chk = ex.verify(x, group=dist.group.WORLD)
-            times = []
-            for _ in range(3):
-                dist.barrier(device_ids=[mine.device.index]) if mine.is_cuda \
-                    else dist.barrier()
-                t0 = time.perf_counter()
-                ex.run(x, group=dist.group.WORLD)
-                if mine.is_cuda:
-                    torch.cuda.synchronize()
-                times.append(time.perf_counter() - t0)
+            secs = ex.measure(x, reps=3, group=dist.group.WORLD)
             res[str(root)] = dict(
                 equal=bool(torch.equal(mine.view(torch.uint8),
                                        virtual.view(torch.uint8))),
                 ok=chk.ok, missing=list(chk.missing), device=str(mine.device),
-                subrounds=ex.num_subrounds, ms=min(times) * 1e3)
+                subrounds=ex.num_subrounds, ms=secs * 1e3)
+        res["calibration"] = calibrate_rank(
+            rank, world, cfg, os.path.dirname(out))
     finally:
         dist.destroy_process_group()
     with open(f"{out}.{rank}.json", "w") as f:
         json.dump(res, f)
 
 
+def calibrate_rank(rank, world, cfg, tmp):
+    """The calibration across the group, on one rank of
+    ``distributed_rank``: ``calibrate(ring(world), group=WORLD)`` at the
+    ring ladder (its K1 launches counted), the artifact stored under the
+    group's ``CalibrationKey`` and reloaded, and ``prediction_report`` of
+    BBS, ``binomial`` and ``pipeline`` at 4 and 16 MiB on ``ring(world)``
+    and, at 4 or 8 ranks, ``mesh2d(2, world / 2)``, each verified across
+    the group first, its ``permute_step`` launches counted, and this rank's
+    writes a run (``distributed.bbs_tables``' ``r_ok``). Returns what this
+    rank saw."""
+    import importlib
+    import torch.distributed as dist
+    from repro_torch import api
+    from repro_torch.core import topology as T
+    from repro_torch.core.planstore import CalibrationKey, PlanStore
+    from repro_torch.device import distributed as D
+    from repro_torch.device import round_step as rs
+    C = importlib.import_module("repro_torch.device.calibrate")
+
+    group = dist.group.WORLD
+    topo = T.ring(world)
+    t0 = time.perf_counter()
+    before = rs.launches
+    cost = C.calibrate(topo, group=group, device=cfg.device.device,
+                       sizes=CAL_RING_SIZES, iters=CAL_ITERS, reps=CAL_REPS)
+    launches = rs.launches - before
+    cal_s = time.perf_counter() - t0
+    key = CalibrationKey.for_topology(topo, cost.meta["backend"], world)
+    virtual = CalibrationKey.for_topology(topo, "cuda", world)
+    plans = os.path.join(tmp, f"plans{rank}")
+    path = PlanStore(plans).store_calibration(key, cost)
+    back, _ = PlanStore(plans).load_calibration(key)
+    topos = [topo] + ([T.mesh2d(2, world // 2)] if world in (4, 8) else [])
+    rows = []
+    for fabric in topos:
+        model = api.compile(fabric)
+        for nbytes in (CAL_RING_NBYTES, DIST_NBYTES):
+            for algo in ("bbs", "binomial", "pipeline"):
+                ex = model.executable(root=0, nbytes=nbytes, algo=algo,
+                                      config=cfg)
+                chk = ex.verify(ex.default_payload(), group=group)
+                before = rs.launches
+                row, = C.prediction_report([ex], cost, reps=CAL_REPS,
+                                           group=group)
+                tabs, _ = D.bbs_tables(ex.schedule, ex.num_groups, rank)
+                rows.append(dict(
+                    launches=rs.launches - before,
+                    writes=int(tabs[:, 4].sum()),
+                    topo=fabric.name, algo=algo, candidate=ex.candidate,
+                    nbytes=nbytes, groups=ex.num_groups,
+                    cycles=row.num_cycles, subrounds=ex.num_subrounds,
+                    ok=chk.ok, missing=list(chk.missing),
+                    predicted_cycle_s=row.predicted_cycle_s,
+                    measured_cycle_s=row.measured_cycle_s,
+                    rel_err=row.rel_err))
+    return dict(cost=cost.to_dict(), launches=launches, seconds=cal_s,
+                reloaded_equal=back == cost, artifact=os.path.basename(path),
+                key=key.digest(), virtual_key=virtual.digest(),
+                report=rows, report_s=time.perf_counter() - t0 - cal_s)
+
+
 def phase_distributed(torch, world=None, backend="nccl", device="cuda"):
     """The distributed executor (``repro_torch.device.distributed``) over
     ``min(8, device_count)`` NCCL ranks, one GPU each, when the machine has
     two or more GPUs: ring BBS broadcasts of 16 MiB, each rank's copy bit
-    for bit against the virtual mesh's. On one GPU it is not run (NCCL puts
-    no two ranks on one GPU) and says so. ``world``, ``backend`` and
-    ``device`` let a CPU rehearsal run it on gloo."""
+    for bit against the virtual mesh's; then the calibration across the
+    ranks (``calibrate_rank``, ``group_calibration``): alpha and beta of
+    the links between the GPUs and the prediction report of BBS and two
+    baselines. On one GPU it is not run (NCCL puts no two ranks on one GPU)
+    and says so. ``world``, ``backend`` and ``device`` let a CPU rehearsal
+    run it on gloo."""
     import multiprocessing as mp
     import tempfile
     if world is None:
@@ -1210,6 +1343,7 @@ def phase_distributed(torch, world=None, backend="nccl", device="cuda"):
         for r in range(world):
             with open(f"{out}.{r}.json") as f:
                 ranks.append(json.load(f))
+    cal_ranks = [rk.pop("calibration") for rk in ranks]
     res = {}
     for root in ranks[0]:
         rows = [rk[root] for rk in ranks]
@@ -1224,10 +1358,106 @@ def phase_distributed(torch, world=None, backend="nccl", device="cuda"):
         log(f"[distributed] {backend} ring {world} root {root}, "
             f"{DIST_NBYTES} B: every rank bit-exact against the virtual "
             f"mesh and the payload ({rows[0]['subrounds']} sub-rounds; "
-            f"{ms!r} ms a broadcast, host clock, slowest rank, min of 3; "
+            f"{ms!r} ms a broadcast, ex.measure(group=): host clock, "
+            f"slowest rank, least of 3 windows after a warm-up, set-up "
+            f"outside them; "
             f"devices {res[root]['devices']})")
+    cal = group_calibration(cal_ranks, world, backend, device)
     log(f"[distributed] phase time {time.perf_counter() - t0:.3f} s")
-    return dict(world=world, backend=backend, roots=res)
+    return dict(world=world, backend=backend, roots=res, calibration=cal)
+
+
+def group_calibration(ranks, world, backend, device):
+    """Gate and print what ``calibrate_rank`` saw on every rank: one cost on
+    every rank, delivered (``calibrate`` raises otherwise), finite alpha >= 0
+    and beta > 0, the meta of the group (``emulated`` False on NCCL), one K1
+    launch a ring sub-round on a GPU, the artifact reloaded equal under a
+    key that is not the virtual mesh's; each report row verified on every
+    rank, with one finite positive measured and predicted time, and on a
+    GPU one ``permute_step`` launch for each of the rank's writes in each of
+    the ``CAL_REPS + 1`` measured runs. The times, ``rel_err`` and whether
+    beta hit the fit's clamp (``meta["beta_clamped"]``) are readings."""
+    from repro_torch.device.calibrate import CalibratedCost
+    cost = CalibratedCost.from_dict(ranks[0]["cost"])
+    if any(CalibratedCost.from_dict(rk["cost"]) != cost for rk in ranks):
+        fail("[distributed] the ranks' calibrations differ")
+    (cls, (alpha, beta)), = cost.classes.items()
+    meta = cost.meta
+    if not (math.isfinite(alpha) and math.isfinite(beta) and alpha >= 0
+            and beta > 0):
+        fail(f"[distributed] calibration alpha {alpha}, beta {beta}")
+    want = (f"{device.split(':')[0]}-{backend}", backend != "nccl", "group",
+            world, list(range(world)))
+    if (meta["backend"], meta["emulated"], meta["axis"], meta["num_devices"],
+            meta["ranks"]) != want or not isinstance(
+                meta.get("beta_clamped"), bool):
+        fail(f"[distributed] calibration meta {meta}, expected {want}")
+    sub = len(CAL_RING_SIZES) * (CAL_REPS + 1) * CAL_ITERS
+    want_launches = sub if device.startswith("cuda") else 0
+    if any(rk["launches"] != want_launches for rk in ranks):
+        fail(f"[distributed] permute_step launches in the calibration "
+             f"{[rk['launches'] for rk in ranks]}, expected {want_launches} "
+             f"a rank ({sub} ring sub-rounds)")
+    if not all(rk["reloaded_equal"] for rk in ranks) or \
+            any(rk["key"] == rk["virtual_key"] for rk in ranks):
+        fail("[distributed] the group's calibration artifact did not reload "
+             "equal, or its key is the virtual mesh's")
+    clamp = (" at the fit's clamp: the rounds do not grow with the row, so "
+             "alpha is the whole cost of a sub-round and beta no link rate"
+             if meta["beta_clamped"] else "")
+    log(f"[distributed] calibrate ring {world} across {world} {backend} "
+        f"ranks ({meta['device_name']}): class {cls}, alpha "
+        f"{alpha * 1e6!r} us, beta {beta / 1e9!r} GB/s{clamp}, fit "
+        f"residual {meta['fit_residual_seconds'] * 1e6!r} us; the same on "
+        f"every rank, ring delivered at every size, {want_launches} "
+        f"permute_step launches a rank; backend {meta['backend']}, emulated "
+        f"{meta['emulated']}; stored as {ranks[0]['artifact']} and reloaded "
+        f"equal (key {ranks[0]['key']}, virtual mesh {ranks[0]['virtual_key']}"
+        f"); {max(rk['seconds'] for rk in ranks):.3f} s")
+    for size, rb, t in zip(meta["sizes"], meta["row_bytes"],
+                           meta["round_seconds"]):
+        log(f"[distributed]   {size} B a link (row {rb} B): {t * 1e6!r} us "
+            f"a round, slowest rank, least of {CAL_REPS} windows of "
+            f"{CAL_ITERS}")
+    report = []
+    for i, row in enumerate(ranks[0]["report"]):
+        mine = [rk["report"][i] for rk in ranks]
+        bad = [r for r, m in enumerate(mine) if not m["ok"] or m["missing"]]
+        if bad:
+            fail(f"[distributed] {row['topo']} {row['algo']} {row['nbytes']} "
+                 f"B: ranks {bad} did not get the payload")
+        if any(m["measured_cycle_s"] != row["measured_cycle_s"]
+               for m in mine):
+            fail(f"[distributed] {row['topo']} {row['algo']}: the ranks "
+                 f"measured different times")
+        runs = (CAL_REPS + 1) if device.startswith("cuda") else 0
+        if any(m["launches"] != m["writes"] * runs for m in mine):
+            fail(f"[distributed] {row['topo']} {row['algo']} "
+                 f"{row['nbytes']} B: permute_step launches "
+                 f"{[m['launches'] for m in mine]}, expected "
+                 f"{[m['writes'] * runs for m in mine]}")
+        for k in ("predicted_cycle_s", "measured_cycle_s"):
+            if not 0 < row[k] < float("inf"):
+                fail(f"[distributed] {row['topo']} {row['algo']} "
+                     f"{row['nbytes']} B: {k} {row[k]}")
+        log(f"[distributed]   report {row['topo']} {row['algo']} "
+            f"({row['candidate']}, m={row['groups']}, {row['cycles']} cycles, "
+            f"{row['subrounds']} sub-rounds) {row['nbytes']} B: verified on "
+            f"every rank; permute_step launches a rank "
+            f"{[m['launches'] for m in mine]} (its writes x {runs}); cycle "
+            f"predicted {row['predicted_cycle_s'] * 1e6!r} "
+            f"us, measured {row['measured_cycle_s'] * 1e6!r} us, rel_err "
+            f"{row['rel_err']!r}")
+        report.append(row)
+    return dict(topo=f"ring_{world}", link_class=cls, alpha_s=alpha,
+                beta_bytes_per_s=beta, beta_clamped=meta["beta_clamped"],
+                fit_residual_s=meta["fit_residual_seconds"],
+                sizes=meta["sizes"], row_bytes=meta["row_bytes"],
+                round_s=meta["round_seconds"], backend=meta["backend"],
+                emulated=meta["emulated"], devices=meta["device_name"],
+                launches=want_launches, key=ranks[0]["key"],
+                seconds=max(rk["seconds"] for rk in ranks),
+                report_s=max(rk["report_s"] for rk in ranks), report=report)
 
 
 def ssd_inputs(torch, b, s, h, dh, ds, dtype, seed, dt_value=None, a=None):

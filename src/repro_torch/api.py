@@ -15,6 +15,8 @@ stand up a ``PlanServer`` for orbit-canonical plan reuse, and hand back a
     report = model.workload(jobs)          # concurrent multi-root load
     ex = model.executable(root=0, nbytes=16 << 20)   # runs on cuda
     cost = ex.calibrate()                  # Hockney alpha/beta, on cuda
+    cost = ex.calibrate(group=g)           # ... across a torch.distributed
+    t = ex.measure(group=g)                # group, one GPU a rank
 
 ``server=True`` (or a ``store``) attaches a
 ``repro_torch.launch.planserver.PlanServer``: ``plan(root)`` is then served
@@ -129,7 +131,12 @@ class CompiledModel:
         (PlanServer-relabeled plans, pinned route overrides included, flow
         through unchanged); a baseline name (``"binomial"``,
         ``"bine_tree"``, ...) lowers that baseline's whole-message tree
-        through the same ``build_pipeline`` -> ``DeviceSchedule`` path."""
+        through the same ``build_pipeline`` -> ``DeviceSchedule`` path
+        (``"pipeline"`` with its packets as the pipeline's groups). Each
+        runs, verifies, measures and calibrates on one card, or across the
+        ranks of a ``torch.distributed`` group (``group=``), and
+        ``repro_torch.device.prediction_report(..., group=)`` reports it
+        there."""
         from repro_torch.device.executable import build_executable
         plan = self.plan(root) if algo == "bbs" else None
         return build_executable(self.topo, self.cm, root, nbytes,

@@ -10,7 +10,11 @@ constants from timed ring rounds of that kernel and reports the
 simulator's prediction against the measured broadcast. ``carry`` imports
 schedules the JAX package compiled. ``distributed`` runs a plan across the
 ranks of a ``torch.distributed`` group instead, one device a rank
-(``ExecutablePlan.run(x, group=...)``).
+(``ExecutablePlan.run(x, group=...)``), and the calibration times, fits
+and reports it there (``measure(group=...)``, ``calibrate(group=...)``,
+``prediction_report(..., group=...)``): on an NCCL group of GPUs, the
+Hockney constants of the executor's sub-round between them (the links and
+the host's wait on each exchange).
 """
 
 from repro_torch.device.calibrate import (CalibratedCost, PredictionRow,

@@ -24,6 +24,19 @@ The fitted alpha is the kernel's grid barrier plus one dependent load, and
 beta the card's memory (or L2) rate shared by all n "links": the fit is a
 self-consistency check of the cost model on one card (``emulated`` is
 True), not the constants of a fabric.
+
+Across cards (the reference's mesh): with a ``torch.distributed`` group,
+one rank a device, ``measure_round``, ``calibrate`` and
+``prediction_report`` time the rounds and broadcasts of the distributed
+executor (``repro_torch.device.distributed``): each sub-round one
+``batch_isend_irecv`` over the links between the devices, then K1's
+``permute_step``. What the fit holds there is the executor's cost of one
+sub-round, not the links' constants alone: the host waits on each
+sub-round's exchange, so alpha carries that round trip, and where the
+rounds do not grow with the row beta sits at ``_fit_hockney``'s clamp
+(``meta["beta_clamped"]`` says so). ``meta`` backend ``"cuda-nccl"`` on an
+NCCL group of GPUs (``emulated`` False: real devices, no emulated host
+mesh); on gloo it is a CPU rehearsal (``"cpu-gloo"``, ``emulated`` True).
 """
 
 from __future__ import annotations
@@ -147,7 +160,7 @@ def ring_delivered(buf: torch.Tensor) -> bool:
 
 
 def measure_round(n: int, nbytes: int, *, device="cuda", iters: int = 32,
-                  reps: int = 5) -> float:
+                  reps: int = 5, group=None) -> float:
     """Measured seconds for one executor round at ``nbytes`` per link on
     ``n`` virtual devices: a full ring matching (every device sends -- the
     all-links-busy case the Hockney per-link charge models), ``iters`` of
@@ -155,7 +168,22 @@ def measure_round(n: int, nbytes: int, *, device="cuda", iters: int = 32,
     ``reps`` timed launches after a warm-up, divided by ``iters``. Timed
     with ``torch.cuda.Event`` on a GPU and ``perf_counter`` on the CPU
     (the plain round step); any other device raises. Raises
-    ``RuntimeError`` if the rounds did not deliver (``ring_delivered``)."""
+    ``RuntimeError`` if the rounds did not deliver (``ring_delivered``).
+
+    With a ``torch.distributed`` group (the reference's mesh), the n
+    devices are the group's ranks, one device each (``device`` as for
+    ``distributed.rank_device``: ``cuda:<local rank>`` on NCCL, ``"cpu"``
+    on gloo), and ``n`` must be the group's size, or it raises
+    ``ValueError``. A round is then the executor's sub-round
+    (``distributed.ring_round_group``: one ``batch_isend_irecv`` of the
+    ring, then K1's ``permute_step``). Each of ``reps + 1`` windows (the
+    first a warm-up, which also pays NCCL's set-up of each peer pair) is a
+    barrier, the ``iters`` sub-rounds and a synchronize, on the host clock,
+    its time the slowest rank's (``distributed.measure``); every rank
+    returns the same float. Raises ``RuntimeError`` if the ring did not
+    deliver on every rank (``distributed.ring_delivered_group``)."""
+    if group is not None:
+        return _measure_round_group(n, nbytes, device, iters, reps, group)
     dev = resolve_device(device)
     buf, moves = ring_round(n, nbytes, dev, iters)
     best = float("inf")
@@ -180,10 +208,25 @@ def measure_round(n: int, nbytes: int, *, device="cuda", iters: int = 32,
     return best / iters
 
 
+def _measure_round_group(n, nbytes, device, iters, reps, group) -> float:
+    import torch.distributed as dist
+
+    from repro_torch.device import distributed as D
+    size = dist.get_world_size(group)
+    if n != size:
+        raise ValueError(f"a ring of {n} devices on a group of {size} ranks")
+    prog = D.ring_round_group(nbytes, group, device, iters)
+    best = D.measure(prog, reps)
+    if not D.ring_delivered_group(prog):
+        raise RuntimeError(f"the ring rounds on {n} ranks at {nbytes} B did "
+                           f"not deliver row 0 to the successor")
+    return best / iters
+
+
 def calibrate(topo: Optional[Topology], n: Optional[int] = None, *,
               device="cuda", sizes: Optional[Sequence[int]] = None,
               iters: int = 32, reps: int = 5, cls: Optional[str] = None,
-              emulated: Optional[bool] = None) -> CalibratedCost:
+              emulated: Optional[bool] = None, group=None) -> CalibratedCost:
     """Fit Hockney alpha/beta for the fabric's link class on ``n`` virtual
     devices (``topo.num_nodes`` by default) of ``device``.
 
@@ -191,25 +234,54 @@ def calibrate(topo: Optional[Topology], n: Optional[int] = None, *,
     simulator charge is keyed by) so :func:`apply_calibration` finds it;
     homogeneous fabrics have one class, which is all a flat mesh can
     measure. ``emulated`` defaults to True: the virtual mesh's links are
-    the card's memory, not a fabric."""
-    dev = resolve_device(device)
-    if n is None:
-        n = topo.num_nodes
+    the card's memory, not a fabric.
+
+    With a ``torch.distributed`` group every rank calls it, the rounds run
+    across the ranks (:func:`measure_round` with ``group``), ``n`` defaults
+    to the group's size, and every rank returns the same artifact. Its
+    ``meta`` says what was measured: ``backend`` is the rank device's type
+    and the group's backend (``"cuda-nccl"``, ``"cpu-gloo"``), so that a
+    ``CalibrationKey`` never takes a virtual mesh's fit for the group's;
+    ``emulated`` defaults to False on a GPU and True on the CPU, as the
+    reference derives it from its backend; ``axis`` is ``"group"``,
+    ``ranks`` the group's global ranks, ``device_name`` every rank's
+    device, gathered, and ``beta_clamped`` whether the fitted slope hit
+    ``_fit_hockney``'s floor (the rounds did not grow with the row, so
+    alpha is the whole per-sub-round cost and beta no link rate)."""
+    if group is not None:
+        import torch.distributed as dist
+
+        from repro_torch.device import distributed as D
+        dev = D.rank_device(group, device)
+        if n is None:
+            n = dist.get_world_size(group)
+    else:
+        dev = resolve_device(device)
+        if n is None:
+            n = topo.num_nodes
     if sizes is None:
         sizes = (1 << 10, 8 << 10, 64 << 10, 256 << 10, 1 << 20)
-    times = [measure_round(n, s, device=dev, iters=iters, reps=reps)
-             for s in sizes]
+    times = [measure_round(n, s, device=dev, iters=iters, reps=reps,
+                           group=group) for s in sizes]
     a, b, resid = _fit_hockney(sizes, times)
     if cls is None:
         cls = getattr(topo, "_preset", None) or "host"
+    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     meta = {"backend": dev.type, "num_devices": int(n),
             "emulated": True if emulated is None else bool(emulated),
             "axis": None,                       # the virtual mesh has none
             "sizes": [int(s) for s in sizes], "round_seconds": times,
             "fit_residual_seconds": resid, "iters": iters, "reps": reps,
-            "device_name": (torch.cuda.get_device_name(dev)
-                            if dev.type == "cuda" else "cpu"),
+            "device_name": name,
             "row_bytes": [ring_row_bytes(s) for s in sizes]}
+    if group is not None:
+        names = [None] * n
+        dist.all_gather_object(names, name, group=group)
+        meta.update(backend=f"{dev.type}-{dist.get_backend(group)}",
+                    emulated=(dev.type == "cpu" if emulated is None
+                              else bool(emulated)),
+                    axis="group", ranks=D._group_ranks(group, n),
+                    device_name=names, beta_clamped=b == 1.0 / 1e-18)
     return CalibratedCost(classes={cls: (a, b)}, meta=meta)
 
 
@@ -271,14 +343,17 @@ def predict_cycle_time(ex, cost: CalibratedCost,
 
 
 def prediction_report(executables: Sequence, cost: CalibratedCost,
-                      reps: int = 5) -> List[PredictionRow]:
+                      reps: int = 5, group=None) -> List[PredictionRow]:
     """Predicted-vs-measured per-cycle time for each executable: its
     ``measure()`` (one ``permute_rounds`` launch a broadcast on a GPU)
-    over its cycle count, beside :func:`predict_cycle_time`."""
+    over its cycle count, beside :func:`predict_cycle_time`. With a
+    ``torch.distributed`` group, every rank calls it and each executable
+    is measured across the ranks (``ExecutablePlan.measure(group=...)``);
+    every rank gets the same rows."""
     rows = []
     for ex in executables:
         cycles = ex.schedule.num_cycles(ex.num_groups)
-        measured = ex.measure(reps=reps) / cycles
+        measured = ex.measure(reps=reps, group=group) / cycles
         rows.append(PredictionRow(
             topo=ex.topo.name, candidate=ex.candidate, nbytes=ex.nbytes,
             num_cycles=cycles, predicted_cycle_s=predict_cycle_time(ex, cost),

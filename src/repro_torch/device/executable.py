@@ -10,9 +10,18 @@ times the broadcast on n virtual devices of one card::
     ex = model.executable(root=0, nbytes=16 << 20)
     out = ex.run(x)          # (n,) + x.shape, one copy per virtual device
     chk = ex.verify(x)       # bit-exact delivery on every device
-    mine = ex.run(x, group=g)   # across a torch.distributed group, per rank
     t = ex.measure()         # seconds per broadcast
     cost = ex.calibrate()    # Hockney alpha/beta of the virtual mesh
+
+Across the ranks of a ``torch.distributed`` group, one device a rank (every
+rank calls, each gets its own result; NCCL on ``cuda:<local rank>``, gloo
+on ``"cpu"``)::
+
+    mine = ex.run(x, group=g)           # this rank's copy
+    chk = ex.verify(x, group=g)         # the whole group's delivery
+    t = ex.measure(group=g)             # seconds a broadcast, slowest rank
+    cost = ex.calibrate(group=g)        # alpha/beta of a sub-round
+    rows = prediction_report([ex], cost, group=g)   # repro_torch.device
 
 The device comes from ``SimConfig.device`` (``DeviceConfig(device=...)``):
 ``"cuda"`` by default, which raises on a host without a GPU; ``"cpu"`` runs
@@ -20,7 +29,10 @@ the plain PyTorch round step. Baselines lower through the identical
 machinery: the whole-message task list is folded back into its
 arborescence, colored into conflict-free rounds
 (``repro_torch.core.schedule.build_pipeline``) and compiled into the same
-tables, multi-hop virtual edges becoming relay chains inside the cycle.
+tables, multi-hop virtual edges becoming relay chains inside the cycle. A
+pipelined baseline whose packets all follow one tree (``"pipeline"``, the
+MPICH chain in rank order) folds into that tree with its packets as the
+pipeline's groups; the reference refuses it (``NotDeviceExecutable``).
 
 ``verify`` enforces the no-fault delivery contract: every node is reachable
 from the root, so every node's buffer must be bit-identical to the payload,
@@ -162,13 +174,27 @@ class ExecutablePlan:
         return torch.randint(0, 256, (n * esz,), dtype=torch.uint8,
                              generator=g).view(dtype)
 
-    def measure(self, x: Optional[torch.Tensor] = None,
-                reps: int = 5) -> float:
+    def measure(self, x: Optional[torch.Tensor] = None, reps: int = 5,
+                group=None) -> float:
         """Seconds per broadcast: the minimum over ``reps`` timed runs of the
         cycle loop (on a GPU one ``permute_rounds`` launch), after one
         untimed warm-up run. Each run starts from freshly packed buffers,
         made outside the timed window. Timed with ``torch.cuda.Event`` on a
-        GPU and ``perf_counter`` on the CPU."""
+        GPU and ``perf_counter`` on the CPU.
+
+        With a ``torch.distributed`` group, every rank calls it and the
+        broadcast runs across the ranks: this rank's program is prepared
+        once and repacked before each window, both outside them
+        (``distributed.prepare_bbs``, ``distributed.measure``); each window
+        is a barrier, the sub-rounds and a synchronize, on the host clock,
+        its time the slowest rank's; every rank returns the same
+        seconds."""
+        if group is not None:
+            from repro_torch.device import distributed
+            x = self.default_payload() if x is None else x
+            return distributed.measure(distributed.prepare_bbs(
+                x, self.schedule, self.num_groups, group,
+                device=self.device.device), reps)
         dev = self.torch_device
         x = (self.default_payload() if x is None else x).to(dev)
         lay = runner.packet_layout(x, self.schedule, self.num_groups)
@@ -194,12 +220,13 @@ class ExecutablePlan:
                 best = min(best, t)
         return best
 
-    def calibrate(self, **kw):
+    def calibrate(self, group=None, **kw):
         """Fit Hockney alpha/beta from ring rounds on this plan's n virtual
-        devices and device -- see ``repro_torch.device.calibrate``."""
+        devices and device, or across the n ranks of a ``torch.distributed``
+        ``group`` -- see ``repro_torch.device.calibrate``."""
         from repro_torch.device.calibrate import calibrate
         return calibrate(self.topo, self.schedule.num_devices,
-                         device=self.device.device, **kw)
+                         device=self.device.device, group=group, **kw)
 
 
 def build_executable(topo: Topology, cm: ConflictModel, root: int,
@@ -211,7 +238,10 @@ def build_executable(topo: Topology, cm: ConflictModel, root: int,
     ``algo="bbs"`` walks the plan's Eq.-4 candidate ranking and takes the
     best candidate whose pipeline compiles to matchings
     (``NotDeviceExecutable`` candidates are skipped); a baseline name takes
-    that baseline's whole-message tree through ``build_pipeline``. ``plan``
+    that baseline's tree through ``build_pipeline``: the whole message's,
+    or for a pipelined baseline whose packets all follow one tree
+    (``"pipeline"``) that tree with the packets as the groups -- which the
+    reference refuses with ``NotDeviceExecutable``. ``plan``
     short-circuits the BBS plan build. Raises at once when the configured
     device is ``cuda`` and the host has no GPU."""
     cfg = config or SimConfig()
@@ -243,29 +273,37 @@ def build_executable(topo: Topology, cm: ConflictModel, root: int,
             f"no BBS candidate for root {root} compiles to a device "
             f"schedule: {errors}")
 
-    # baseline path: rebuild the whole-message arborescence from the task
-    # list and lower it through the standard pipeline coloring
+    # baseline path: fold the task list back into its arborescence -- one
+    # tree for the whole message, or the one tree every packet of a
+    # pipelined baseline follows, its packets becoming the pipeline's
+    # groups -- and lower it through the standard pipeline coloring
     from repro_torch.core import baselines as B
     from repro_torch.core.arborescence import Arborescence
     from repro_torch.core.schedule import build_pipeline
     tasks = B.BASELINES[algo](topo, root, nbytes)
-    parent = {}
+    parents = {}
     for t in tasks:
-        if t.blk != (0, 1):
+        if t.blk[1] != t.blk[0] + 1:
             raise NotDeviceExecutable(
-                f"baseline {algo!r} is not a whole-message tree (task blocks "
-                f"{t.blk}); only tree baselines execute on device")
+                f"baseline {algo!r} is not a tree of whole packets (task "
+                f"blocks {t.blk}); only tree baselines execute on device")
+        parent = parents.setdefault(t.blk[0], {})
         if t.dst in parent:
             raise NotDeviceExecutable(
                 f"baseline {algo!r} delivers node {t.dst} twice; not a tree")
         parent[t.dst] = t.src
-    tree = Arborescence(root=root, parent=parent)
+    m = len(parents)
+    if sorted(parents) != list(range(m)) or \
+            any(p != parents[0] for p in parents.values()):
+        raise NotDeviceExecutable(
+            f"baseline {algo!r} sends its packets along different trees")
+    tree = Arborescence(root=root, parent=parents[0])
     pipe = build_pipeline(topo, [tree], cm)
     sched = make_device_schedule(pipe, n, compiled=compiled)
     res = B.simulate_baseline(topo, cm, algo, root, nbytes,
                               config=SimConfig(engine=cfg.engine, device=dev))
     return ExecutablePlan(
         topo=topo, cm=cm, root=root, nbytes=float(nbytes), algo=algo,
-        candidate=algo, schedule=sched, num_groups=1,
+        candidate=algo, schedule=sched, num_groups=m,
         predicted_time=res.finish_time, info={"baseline": algo},
         device=dev, pipeline=pipe)

@@ -3,7 +3,8 @@ kernels (the round step K1 -- one sub-round a launch, and every sub-round
 of a broadcast in one persistent launch, also as the calibration's ring
 rounds --, flash attention K2, the SSD scan K3, the simulator's event
 core) against their plain PyTorch versions, small broadcasts on the card
-against the same broadcasts on the CPU, and the LMs of every family on the
+against the same broadcasts on the CPU, the calibration across the GPUs of
+an NCCL group (two GPUs or more), and the LMs of every family on the
 card against the CPU. They skip on a host
 without a GPU; on the card run them with
 
@@ -273,6 +274,139 @@ def test_executable_calibrate_on_card(gpu, tmp_path):
     store.store_calibration(key, cost)
     back, _ = store.load_calibration(key)
     assert back == cost
+
+
+def _group_calibrate_rank(rank, world, store, out):
+    """One NCCL rank of ``test_group_calibrate_across_gpus``."""
+    import importlib
+    import json
+
+    import torch.distributed as dist
+
+    from repro_torch import api
+    from repro_torch.core import topology as T
+    from repro_torch.core.simconfig import DeviceConfig, SimConfig
+    from repro_torch.device import round_step as rs
+    C = importlib.import_module("repro_torch.device.calibrate")
+
+    dist.init_process_group("nccl", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        group = dist.group.WORLD
+        before = rs.launches
+        cost = C.calibrate(T.ring(world), group=group,
+                           sizes=(8 << 10, 64 << 10), iters=8, reps=2)
+        launches = rs.launches - before
+        ex = api.compile(T.ring(world)).executable(
+            root=0, nbytes=1 << 20,
+            config=SimConfig(device=DeviceConfig(device="cuda")))
+        chk = ex.verify(ex.default_payload(), group=group)
+        row, = C.prediction_report([ex], cost, reps=2, group=group)
+        res = dict(cost=cost.to_dict(), launches=launches, ok=chk.ok,
+                   measured=row.measured_cycle_s,
+                   predicted=row.predicted_cycle_s,
+                   want=C.predict_cycle_time(ex, cost))
+    finally:
+        dist.destroy_process_group()
+    with open(f"{out}.{rank}.json", "w") as f:
+        json.dump(res, f)
+
+
+def test_group_calibrate_across_gpus(gpu, tmp_path):
+    """``calibrate`` and ``prediction_report`` with an NCCL group of up to
+    four GPUs, one rank each: one cost on every rank, ``cuda-nccl`` and not
+    emulated, each rank's card named, one ``permute_step`` launch a ring
+    sub-round, the broadcast verified on every rank and its measured cycle
+    one finite positive time on all. Skips below two GPUs."""
+    import json
+    import multiprocessing as mp
+
+    from repro_torch.device.calibrate import CalibratedCost
+
+    world = min(4, torch.cuda.device_count())
+    if world < 2:
+        pytest.skip("needs two GPUs or more: NCCL puts no two ranks on one")
+    ctx = mp.get_context("spawn")
+    out = str(tmp_path / "rank")
+    procs = [ctx.Process(target=_group_calibrate_rank,
+                         args=(r, world, str(tmp_path / "store"), out))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(300)
+    alive = [p.pid for p in procs if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+    assert not alive and [p.exitcode for p in procs] == [0] * world
+    ranks = []
+    for r in range(world):
+        with open(f"{out}.{r}.json") as f:
+            ranks.append(json.load(f))
+    costs = [CalibratedCost.from_dict(rk["cost"]) for rk in ranks]
+    assert all(c == costs[0] for c in costs)
+    meta = costs[0].meta
+    assert (meta["backend"], meta["emulated"], meta["num_devices"]) == \
+        ("cuda-nccl", False, world)
+    assert meta["device_name"] == [torch.cuda.get_device_name(i)
+                                   for i in range(world)]
+    (a, b), = costs[0].classes.values()
+    assert a >= 0 and b > 0 and np.isfinite([a, b]).all()
+    assert meta["beta_clamped"] is (b == 1.0 / 1e-18)
+    assert all(rk["launches"] == 2 * 3 * 8 and rk["ok"] for rk in ranks)
+    assert len({rk["measured"] for rk in ranks}) == 1
+    assert 0 < ranks[0]["measured"] < float("inf")
+    assert ranks[0]["predicted"] == ranks[0]["want"] > 0
+
+
+@pytest.mark.parametrize("what", ["ring", "bbs", "binomial", "pipeline"])
+def test_kernel_matches_plain_at_group_shapes(gpu, what):
+    """``permute_step`` against its plain version at the distributed
+    executor's shapes: one rank's ``[1, rows + 1, row]`` buffer, random,
+    with K1's table of each write (``distributed.local_writes``), the
+    staging row refilled with random bytes before each write as a receive
+    refills it; the calibration ring at 8 KiB and 1 MiB, and every rank of
+    a 1 MiB ring-4 broadcast. Bit-exact on the whole buffer after every
+    write."""
+    from repro_torch import api
+    from repro_torch.core import topology as T
+    from repro_torch.core.simconfig import DeviceConfig, SimConfig
+    from repro_torch.device import distributed as D
+    from repro_torch.device import round_step as rs
+    from repro_torch.device import runner
+    from repro_torch.device.calibrate import ring_row_bytes
+
+    if what == "ring":
+        cases = [(2, ring_row_bytes(s), D.ring_tables(1, 4, 8)[0])
+                 for s in (8 << 10, 1 << 20)]
+    else:
+        ex = api.compile(T.ring(4)).executable(
+            root=0, nbytes=1 << 20, algo=what,
+            config=SimConfig(device=DeviceConfig(device="cpu")))
+        lay = runner.packet_layout(ex.default_payload(), ex.schedule,
+                                   ex.num_groups)
+        cases = [(lay.rows, lay.row_bytes,
+                  D.bbs_tables(ex.schedule, ex.num_groups, me)[0])
+                 for me in range(4)]
+    g = torch.Generator(device="cuda").manual_seed(5)
+    writes = 0
+    for rows, row_bytes, tabs in cases:
+        local = D.local_writes(tabs, rows)
+        tab = torch.from_numpy(local).cuda()
+        got = torch.randint(0, 256, (1, rows + 1, row_bytes),
+                            dtype=torch.uint8, device="cuda", generator=g)
+        ref = got.clone()
+        for k in np.flatnonzero(local[:, 4, 0]):
+            fresh = torch.randint(0, 256, (row_bytes,), dtype=torch.uint8,
+                                  device="cuda", generator=g)
+            got[0, rows] = fresh
+            ref[0, rows] = fresh
+            rs.permute_step_ref(ref, tab[k])
+            rs.permute_step(got, tab[k])
+            assert torch.equal(got, ref), (rows, row_bytes, k)
+            writes += 1
+    assert writes > 0
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
