@@ -34,6 +34,11 @@ pipelined baseline whose packets all follow one tree (``"pipeline"``, the
 MPICH chain in rank order) folds into that tree with its packets as the
 pipeline's groups; the reference refuses it (``NotDeviceExecutable``).
 
+While ``repro_torch.spans`` records, ``run`` on one card opens a
+``bcast.run`` span (a request) and ``build_executable`` a
+``lower.executable`` span with a ``lower.schedule`` span around each
+``make_device_schedule``.
+
 ``verify`` enforces the no-fault delivery contract: every node is reachable
 from the root, so every node's buffer must be bit-identical to the payload,
 compared on raw bytes on the device.
@@ -47,6 +52,7 @@ from typing import List, Optional, Tuple
 
 import torch
 
+from repro_torch import spans
 from repro_torch.core.intersection import ConflictModel
 from repro_torch.core.simconfig import DeviceConfig, SimConfig
 from repro_torch.core.topology import Topology
@@ -139,11 +145,12 @@ class ExecutablePlan:
             return distributed.bbs_broadcast(
                 x, self.schedule, self.num_groups, group,
                 device=self.device.device)
-        prog = self._program()
-        return runner.bbs_broadcast(x, self.schedule, self.num_groups,
-                                    self.torch_device,
-                                    tables=prog.get("tabs"),
-                                    moves=prog.get("moves"))
+        with spans.span("bcast.run", request=True):
+            prog = self._program()
+            return runner.bbs_broadcast(x, self.schedule, self.num_groups,
+                                        self.torch_device,
+                                        tables=prog.get("tabs"),
+                                        moves=prog.get("moves"))
 
     def verify(self, x: torch.Tensor, group=None) -> DeviceDelivery:
         """Run and compare every device's bytes with the payload's, on the
@@ -244,6 +251,12 @@ def build_executable(topo: Topology, cm: ConflictModel, root: int,
     reference refuses with ``NotDeviceExecutable``. ``plan``
     short-circuits the BBS plan build. Raises at once when the configured
     device is ``cuda`` and the host has no GPU."""
+    with spans.span("lower.executable"):
+        return _lower(topo, cm, root, nbytes, algo, plan, config)
+
+
+def _lower(topo: Topology, cm: ConflictModel, root: int, nbytes: float,
+           algo: str, plan, config: Optional[SimConfig]) -> ExecutablePlan:
     cfg = config or SimConfig()
     dev = cfg.device or DeviceConfig()
     runner.resolve_device(dev.device)
@@ -257,8 +270,9 @@ def build_executable(topo: Topology, cm: ConflictModel, root: int,
         errors: List[str] = []
         for cand, m in plan.select(nbytes, top=len(plan.candidates)):
             try:
-                sched = make_device_schedule(cand.pipeline, n,
-                                             compiled=compiled)
+                with spans.span("lower.schedule"):
+                    sched = make_device_schedule(cand.pipeline, n,
+                                                 compiled=compiled)
             except NotDeviceExecutable as e:
                 errors.append(f"{cand.name}: {e}")
                 continue
@@ -299,7 +313,8 @@ def build_executable(topo: Topology, cm: ConflictModel, root: int,
             f"baseline {algo!r} sends its packets along different trees")
     tree = Arborescence(root=root, parent=parents[0])
     pipe = build_pipeline(topo, [tree], cm)
-    sched = make_device_schedule(pipe, n, compiled=compiled)
+    with spans.span("lower.schedule"):
+        sched = make_device_schedule(pipe, n, compiled=compiled)
     res = B.simulate_baseline(topo, cm, algo, root, nbytes,
                               config=SimConfig(engine=cfg.engine, device=dev))
     return ExecutablePlan(

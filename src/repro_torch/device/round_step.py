@@ -30,7 +30,9 @@ each sub-round only the ``(dst_row, src_row)`` pairs of its writing
 receivers, as row indexes into the ``[n * rows, row_bytes]`` view of the
 buffer. Its plain version ``permute_rounds_ref`` applies them sub-round by
 sub-round. ``rounds_launches`` counts its launches and ``subrounds`` the
-sub-rounds they ran.
+sub-rounds they ran; ``moved_bytes`` counts the HBM bytes of rows that
+every ``permute_rounds`` call, on the card or the plain path, reads and
+writes (``Moves.moved_bytes``).
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ import torch
 launches = 0          # kernel launches of permute_step since the last reset
 rounds_launches = 0   # kernel launches of permute_rounds since the last reset
 subrounds = 0         # sub-rounds those permute_rounds launches ran
+moved_bytes = 0       # row bytes permute_rounds calls read and wrote
 
 _fn = None
 _rounds_lib = None
@@ -151,13 +154,17 @@ class Moves:
     ``[n * rows, row_bytes]`` view of the buffer; ``src_row`` is -1 for a
     zero write. ``offs`` int64 ``[S + 1]``: sub-round s's pairs are
     ``pairs[offs[s]:offs[s + 1]]``. ``counts`` is the host copy of each
-    sub-round's number of pairs, and ``n, rows`` the buffer they index."""
+    sub-round's number of pairs, and ``n, rows`` the buffer they index.
+    ``moves_cum`` and ``zeros_cum`` (int64 ``[S + 1]``, on the host) are
+    prefix sums of the pairs and of the zero writes by sub-round."""
 
     pairs: torch.Tensor
     offs: torch.Tensor
     counts: np.ndarray
     n: int
     rows: int
+    moves_cum: np.ndarray
+    zeros_cum: np.ndarray
 
     @property
     def num_subrounds(self) -> int:
@@ -170,6 +177,14 @@ class Moves:
     def to(self, device) -> "Moves":
         return dataclasses.replace(self, pairs=self.pairs.to(device),
                                    offs=self.offs.to(device))
+
+    def moved_bytes(self, s0: int, s1: int, row_bytes: int) -> int:
+        """HBM bytes of rows that sub-rounds ``[s0, s1)`` read and write on
+        rows of ``row_bytes``: every move writes a row, and every move but a
+        zero write reads one."""
+        moves = int(self.moves_cum[s1] - self.moves_cum[s0])
+        zeros = int(self.zeros_cum[s1] - self.zeros_cum[s0])
+        return (2 * moves - zeros) * row_bytes
 
 
 def compact_moves(tabs: np.ndarray, rows: int) -> Moves:
@@ -194,8 +209,12 @@ def compact_moves(tabs: np.ndarray, rows: int) -> Moves:
     pairs = np.stack([(v * rows + r_ix)[write], src_row[write]], axis=1)
     counts = write.sum(axis=1).astype(np.int64)
     offs = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+    zeros = (write & ~live).sum(axis=1)
     return Moves(pairs=torch.from_numpy(np.ascontiguousarray(pairs)),
-                 offs=torch.from_numpy(offs), counts=counts, n=n, rows=rows)
+                 offs=torch.from_numpy(offs), counts=counts, n=n, rows=rows,
+                 moves_cum=offs,
+                 zeros_cum=np.concatenate([[0], np.cumsum(zeros)]).astype(
+                     np.int64))
 
 
 def _span(moves: Moves, s0: int, s1: Optional[int]) -> Tuple[int, int]:
@@ -278,12 +297,15 @@ def permute_rounds(buf: torch.Tensor, moves: Moves, s0: int = 0,
     """Sub-rounds ``[s0, s1)`` of ``moves`` (all by default) on all virtual
     devices, in place: one launch of the persistent CUDA kernel for a CUDA
     ``buf``, ``permute_rounds_ref`` for a CPU ``buf``. A refused launch
-    raises; nothing falls back to one launch per sub-round."""
-    global rounds_launches, subrounds
+    raises; nothing falls back to one launch per sub-round. Either way
+    ``moved_bytes`` grows by the bytes the sub-rounds move."""
+    global rounds_launches, subrounds, moved_bytes
     _check_rounds(buf, moves)
     s0, s1 = _span(moves, s0, s1)
     if buf.device.type == "cpu":
-        return permute_rounds_ref(buf, moves, s0, s1)
+        permute_rounds_ref(buf, moves, s0, s1)
+        moved_bytes += moves.moved_bytes(s0, s1, buf.shape[2])
+        return buf
     if buf.device.type != "cuda":
         raise ValueError(f"permute_rounds runs on cuda or cpu, not "
                          f"{buf.device}")
@@ -311,4 +333,5 @@ def permute_rounds(buf: torch.Tensor, moves: Moves, s0: int = 0,
                            f"error {rc}")
     rounds_launches += 1
     subrounds += s1 - s0
+    moved_bytes += moves.moved_bytes(s0, s1, row_bytes)
     return buf

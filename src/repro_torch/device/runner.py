@@ -19,6 +19,10 @@ device's copy as ``(n,) + x.shape`` with relay rows and padding dropped.
 Rows are raw bytes (padded to a multiple of 16), so every dtype comes
 through bit-exact.
 
+While ``repro_torch.spans`` records, a broadcast opens ``runner.pack``,
+``runner.cycles`` and ``runner.unpack``, and a lowering ``lower.moves``
+around ``lower.slot_tables``, ``lower.compact_moves`` and ``lower.upload``.
+
 ``binomial_broadcast`` and ``chain_broadcast`` are the reference's two
 whole-message baselines in plain torch on the same virtual mesh (the JAX
 versions use no Pallas kernel either).
@@ -31,6 +35,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.device.round_step import (Moves, compact_moves,
                                            permute_rounds, permute_step)
 from repro_torch.device.schedule import _NOSEND, DeviceSchedule
@@ -88,17 +93,27 @@ def build_tables(sched: DeviceSchedule, num_groups: int,
                  device="cuda") -> torch.Tensor:
     """``slot_tables`` as one device-resident int32 tensor, uploaded once
     per run."""
-    return torch.as_tensor(slot_tables(sched, num_groups),
-                           device=resolve_device(device))
+    with spans.span("lower.moves"):
+        dev = resolve_device(device)
+        with spans.span("lower.slot_tables"):
+            tabs = slot_tables(sched, num_groups)
+        with spans.span("lower.upload"):
+            return torch.as_tensor(tabs, device=dev)
 
 
 def build_moves(sched: DeviceSchedule, num_groups: int,
                 device="cuda") -> Moves:
     """``slot_tables`` compacted to the moves that happen
     (``round_step.compact_moves``), on the device, for ``permute_rounds``."""
-    rows = num_groups * sched.K + sched.num_relay
-    return compact_moves(slot_tables(sched, num_groups), rows).to(
-        resolve_device(device))
+    with spans.span("lower.moves"):
+        dev = resolve_device(device)
+        rows = num_groups * sched.K + sched.num_relay
+        with spans.span("lower.slot_tables"):
+            tabs = slot_tables(sched, num_groups)
+        with spans.span("lower.compact_moves"):
+            moves = compact_moves(tabs, rows)
+        with spans.span("lower.upload"):
+            return moves.to(dev)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,14 +156,15 @@ def pack(x: torch.Tensor, lay: PacketLayout, root: int,
          device: torch.device) -> torch.Tensor:
     """Fresh packet buffers: the root's packet rows hold the zero-padded
     payload, everything else is zero. ``x`` is only read."""
-    buf = torch.zeros((lay.n, lay.rows, lay.row_bytes), dtype=torch.uint8,
-                      device=device)
-    xb = _as_bytes(x).to(device)
-    padded = torch.zeros(lay.total * lay.used, dtype=torch.uint8,
-                         device=device)
-    padded[:xb.numel()] = xb
-    buf[root, :lay.total, :lay.used] = padded.view(lay.total, lay.used)
-    return buf
+    with spans.span("runner.pack"):
+        buf = torch.zeros((lay.n, lay.rows, lay.row_bytes),
+                          dtype=torch.uint8, device=device)
+        xb = _as_bytes(x).to(device)
+        padded = torch.zeros(lay.total * lay.used, dtype=torch.uint8,
+                             device=device)
+        padded[:xb.numel()] = xb
+        buf[root, :lay.total, :lay.used] = padded.view(lay.total, lay.used)
+        return buf
 
 
 def run_cycles(buf: torch.Tensor, tabs: torch.Tensor = None,
@@ -171,14 +187,16 @@ def unpack(buf: torch.Tensor, lay: PacketLayout,
            x: torch.Tensor) -> torch.Tensor:
     """Every device's copy, stacked as ``(n,) + x.shape`` in ``x``'s dtype,
     with relay rows and padding dropped (one copy out of ``buf``)."""
-    nbytes = x.numel() * x.element_size()
-    out = torch.empty((lay.n, nbytes), dtype=torch.uint8, device=buf.device)
-    full, rem = divmod(nbytes, lay.used)
-    out[:, :full * lay.used].view(lay.n, full, lay.used).copy_(
-        buf[:, :full, :lay.used])
-    if rem:
-        out[:, full * lay.used:] = buf[:, full, :rem]
-    return out.view(x.dtype).reshape((lay.n,) + tuple(x.shape))
+    with spans.span("runner.unpack"):
+        nbytes = x.numel() * x.element_size()
+        out = torch.empty((lay.n, nbytes), dtype=torch.uint8,
+                          device=buf.device)
+        full, rem = divmod(nbytes, lay.used)
+        out[:, :full * lay.used].view(lay.n, full, lay.used).copy_(
+            buf[:, :full, :lay.used])
+        if rem:
+            out[:, full * lay.used:] = buf[:, full, :rem]
+        return out.view(x.dtype).reshape((lay.n,) + tuple(x.shape))
 
 
 def bbs_broadcast(x: torch.Tensor, sched: DeviceSchedule, num_groups: int,
@@ -196,7 +214,8 @@ def bbs_broadcast(x: torch.Tensor, sched: DeviceSchedule, num_groups: int,
     elif tables is None:
         tables = build_tables(sched, num_groups, dev)
     buf = pack(x, lay, sched.root, dev)
-    run_cycles(buf, tables, moves)
+    with spans.span("runner.cycles"):
+        run_cycles(buf, tables, moves)
     return unpack(buf, lay, x)
 
 

@@ -177,6 +177,29 @@ def test_rounds_kernel_span_and_barrier_only(gpu):
     assert torch.equal(got, buf)
 
 
+@pytest.mark.parametrize("s0,s1", [(0, None), (5, 23)])
+def test_rounds_kernel_counts_its_moved_bytes(gpu, s0, s1):
+    """``round_step.moved_bytes`` after a real launch equals the bytes the
+    moves' pairs ask, counted on the host: a row written a pair, a row read
+    a pair that is no zero write."""
+    from repro_torch.device import round_step as rs
+
+    rng = np.random.default_rng(31)
+    n, rows, row_bytes = 32, 6, 64
+    moves = rs.compact_moves(_rounds_tables(rng, n, rows, 40), rows)
+    end = moves.num_subrounds if s1 is None else s1
+    offs = np.concatenate([[0], np.cumsum(moves.counts)])
+    src = moves.pairs[offs[s0]:offs[end], 1].numpy()
+    assert (src < 0).any() and (src >= 0).any()
+    want = int(len(src) + (src >= 0).sum()) * row_bytes
+    buf = _rounds_buffer(gpu, rng, n, rows, row_bytes)
+    before = (rs.moved_bytes, rs.rounds_launches)
+    rs.permute_rounds(buf, moves.to(gpu), s0, s1)
+    torch.cuda.synchronize()
+    assert (rs.moved_bytes - before[0], rs.rounds_launches - before[1]) == (
+        want, 1)
+
+
 def test_rounds_kernel_past_2_31_bytes(gpu):
     """A buffer over 2**31 bytes whose last device's last row lies past
     byte 2**31: 64-bit row offsets, bit-identical to the plain version."""
