@@ -8,7 +8,8 @@ Phases, each of which exits non-zero on failure:
 1. build every CUDA kernel of the main paths with ``nvcc`` (sm_90a), all
    sources at once: ``permute_rounds`` (K1, every sub-round of a broadcast
    in one persistent launch), ``permute_step`` (K1's one-sub-round kernel,
-   the yardstick), ``flash_attention`` (K2), ``ssd_scan`` (K3),
+   the yardstick), ``unpack_rows`` (UR, the runner's copy out),
+   ``flash_attention`` (K2), ``ssd_scan`` (K3),
    ``event_core`` and ``event_core_scan`` (EC and its yardstick); print
    ptxas's registers and spills, and each K2, K3 and EC instance's shared
    memory (K2: bf16 tensor-core and float32 FMA kernels, five head dims
@@ -24,7 +25,8 @@ Phases, each of which exits non-zero on failure:
 3. the broadcast path: ``repro_torch.api.compile(mesh2d(16, 16)).executable(
    root=0, nbytes=16 MiB)`` on cuda -- 256 virtual devices, verified bit-exact
    on every device, in exactly one ``permute_rounds`` launch running d x
-   cycles sub-rounds, and no ``permute_step`` launch;
+   cycles sub-rounds, no ``permute_step`` launch and exactly one
+   ``unpack_rows`` launch a broadcast (in ``verify`` and in ``run``);
 4. small broadcasts (ring 8, hypercube 3; bbs and bine_tree; roots 0 and 3;
    bfloat16) on the card, each verified and held against the CPU run;
 5. K1's timing at the broadcast's shape: the old design per launch (a CUDA
@@ -33,7 +35,14 @@ Phases, each of which exits non-zero on failure:
    ``permute_rounds`` launch a broadcast, min of 3; its barrier-only time,
    the same launch with every count 0; the wrapper's host time), the bound
    (bytes moved over the card's memory rate), the plain versions and the
-   ``index_select``/``index_copy_`` yardstick;
+   ``index_select``/``index_copy_`` yardstick; then UR held byte for byte
+   against ``unpack_ref`` on random buffers (padding bytes random too) at
+   the main path's layout and at two of the benchmark cells' 128e6 B
+   layouts on 256 devices (mesh2d root 17 and dragonfly root 0, rows of
+   used % 16 = 8 and 4), one launch each; at each, UR's time (CUDA events,
+   min of 3), ``unpack_ref``'s, the strided ``copy_`` into a held output
+   (the library yardstick), a flat ``copy_`` of as many bytes (the
+   ceiling) and the bound (2 x n x nbytes bytes over the memory rate);
 6. the calibration path through a served, stored model
    (``api.compile(topo, server=True, store=PlanStore(tmp))``): ring 8 at
    4 MiB and mesh2d 16 x 16 at 16 MiB from root 255 (root 0's orbit: one
@@ -203,6 +212,7 @@ GPU, or without the repo beside it, it exits non-zero and prints no result.
 
 import atexit
 import contextlib
+import dataclasses
 import ctypes
 import json
 import math
@@ -247,6 +257,11 @@ CAL_RING_NBYTES = 4 << 20
 CAL_RING_SIZES = (8 << 10, 64 << 10, 256 << 10, 1 << 20)
 CAL_SIZES = (1 << 10, 8 << 10, 64 << 10, 256 << 10, 1 << 20)
 CAL_ITERS, CAL_REPS = 32, 5
+# UR at two of the benchmark cells' 128e6 B layouts on 256 devices
+# (runner.packet_layout on their float32 plans): (total, used, row_bytes,
+# nbytes); used % 16 is 8 and 4, so no output row starts on the 16-byte grid
+UNPACK_SHAPES = (("mesh2d-256 root 17", (2550, 50200, 50208, 128_000_000)),
+                 ("dragonfly-256 root 0", (3870, 33076, 33088, 128_000_000)))
 BF16_TOL, F32_TOL, CHUNK_TOL = 2e-2, 3e-5, 1e-4   # tests/test_kernels.py
 F32_MODEL_TOL = 1e-3      # float32 logits at full depth
 
@@ -327,13 +342,14 @@ def ptxas_kernels(report, pattern):
 def phase_build(FA, K):
     from repro_torch import nvcc
     t0 = time.perf_counter()
-    names = ["permute_rounds", "permute_step", "flash_attention", "ssd_scan",
-             "event_core", "event_core_scan"]
+    names = ["permute_rounds", "permute_step", "unpack_rows",
+             "flash_attention", "ssd_scan", "event_core", "event_core_scan"]
     nvcc.build(names)
     log(f"[build] {', '.join(names)} built in "
         f"{time.perf_counter() - t0:.3f} s")
     k1 = {}
-    for src in ("permute_rounds", "permute_step", "event_core_scan"):
+    for src in ("permute_rounds", "permute_step", "unpack_rows",
+                "event_core_scan"):
         for line in nvcc.build_log(src).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build]   {src}: {line.strip()}")
@@ -599,14 +615,21 @@ def phase_main(torch, rs, api, T):
     x = torch.randn(MAIN_NBYTES // 4, device="cuda", generator=g)
     s = ex.schedule
     ex.moves()                       # compacted once per plan, set-up
+    from repro_torch.device import runner
     rs.launches = rs.rounds_launches = rs.subrounds = 0
+    runner.unpack_launches = 0
     t0 = time.perf_counter()
     chk = ex.verify(x)
     torch.cuda.synchronize()
     t_verify = time.perf_counter() - t0
     launches, subrounds, steps = rs.rounds_launches, rs.subrounds, \
         rs.launches
+    unpacks = runner.unpack_launches
     out = ex.run(x)
+    if unpacks != 1 or runner.unpack_launches != 2:
+        fail(f"main path launched unpack_rows {unpacks} times in verify and "
+             f"{runner.unpack_launches - unpacks} in run, expected 1 a "
+             f"broadcast")
     if tuple(out.shape) != (256,) + tuple(x.shape) or \
             not torch.isfinite(out).all() or not torch.equal(out[255], x):
         fail(f"main path output: shape {tuple(out.shape)}, or non-finite or "
@@ -621,19 +644,18 @@ def phase_main(torch, rs, api, T):
              f"{subrounds} sub-rounds (and permute_step {steps} times), "
              f"expected 1 launch for d x cycles = {ex.num_subrounds} "
              f"sub-rounds and none")
-    from repro_torch.device import runner
     lay = runner.packet_layout(x, s, ex.num_groups)
     secs = ex.measure(x, reps=3)
     log(f"[main] mesh2d 16x16, {MAIN_NBYTES} B float32 from root 0: "
         f"candidate {ex.candidate}, K={s.K}, m={ex.num_groups}, d={s.d}, "
         f"cycles={s.num_cycles(ex.num_groups)}, relay rows={s.num_relay}, "
         f"{launches} permute_rounds launch for {subrounds} sub-rounds, "
-        f"{int(ex.moves().counts.sum())} row moves, packet buffer "
-        f"{lay.buffer_bytes} B ({lay.rows} rows x {lay.row_bytes} B x "
-        f"{lay.n} devices)")
+        f"{int(ex.moves().counts.sum())} row moves, {unpacks} unpack_rows "
+        f"launch a broadcast, packet buffer {lay.buffer_bytes} B "
+        f"({lay.rows} rows x {lay.row_bytes} B x {lay.n} devices)")
     log(f"[main] plan+tables build {t_build:.3f} s; verify (run + compare) "
         f"{t_verify:.3f} s; ok on all {len(chk.required)} devices")
-    return ex, x, lay, launches, subrounds, steps, secs
+    return ex, x, lay, launches, subrounds, steps, unpacks, secs
 
 
 def phase_small(torch, api, T, DeviceConfig, SimConfig):
@@ -763,6 +785,78 @@ def phase_timing(np, torch, rs, runner, ex, x, lay, rate, secs):
                 step_library_ms=library_ms / nl,
                 step_bound_ms=bound_ms / nl, subrounds=nl,
                 conflict_free_runs=runs)
+
+
+def phase_unpack(torch, runner, main_lay, rate):
+    """UR, the runner's copy out (``unpack_rows``), against ``unpack_ref``
+    on the card, byte for byte, on random buffers (padding bytes random
+    too): at the main path's layout and at ``UNPACK_SHAPES``, one launch
+    each. Each shape is timed (CUDA events, min of 3) beside
+    ``unpack_ref``, the strided ``copy_`` into a held output (the library
+    yardstick: ``unpack_ref``'s copies without its allocation), a flat
+    ``copy_`` of as many bytes (the ceiling) and the bound, 2 x n x nbytes
+    bytes at the card's memory rate. Returns the readings by shape."""
+    dev = torch.device("cuda")
+    shapes = {"mesh2d 16x16 main path": (main_lay, MAIN_NBYTES)}
+    for name, (total, used, row_bytes, nbytes) in UNPACK_SHAPES:
+        shapes[name] = (runner.PacketLayout(
+            n=256, total=total, relay=0, plen=used // 4, used=used,
+            row_bytes=row_bytes), nbytes)
+    res = {}
+    for name, (lay, nbytes) in shapes.items():
+        g = torch.Generator(device=dev).manual_seed(27)
+        buf = torch.randint(0, 256, (lay.n, lay.rows, lay.row_bytes),
+                            dtype=torch.uint8, device=dev, generator=g)
+        before = runner.unpack_launches
+        out = runner.unpack_rows(buf, lay, nbytes)
+        if runner.unpack_launches != before + 1:
+            fail(f"[unpack] {name}: {runner.unpack_launches - before} "
+                 f"launches, expected 1")
+        # held 16 devices at a time, so that the plain version's output
+        # fits beside a 128e6 B shape's 33 GB buffer and output
+        bad = 0
+        for a in range(0, lay.n, 16):
+            part = dataclasses.replace(lay, n=min(16, lay.n - a))
+            want = runner.unpack_ref(buf[a:a + part.n], part, nbytes)
+            if not torch.equal(out[a:a + part.n], want):
+                bad += int((out[a:a + part.n] != want).sum())
+            del want
+        if bad:
+            fail(f"[unpack] {name}: {bad} bytes differ from unpack_ref")
+        full, rem = divmod(nbytes, lay.used)
+
+        def strided():
+            out[:, :full * lay.used].view(lay.n, full, lay.used).copy_(
+                buf[:, :full, :lay.used])
+            if rem:
+                out[:, full * lay.used:] = buf[:, full, :rem]
+
+        src, dst = buf.view(-1)[:lay.n * nbytes], out.view(-1)
+        library_ms = min(cuda_ms(strided) for _ in range(3))
+        flat_ms = min(cuda_ms(lambda: dst.copy_(src)) for _ in range(3))
+        del out, dst
+        ms = min(cuda_ms(lambda: runner.unpack_rows(buf, lay, nbytes))
+                 for _ in range(3))
+        plain_ms = min(cuda_ms(lambda: runner.unpack_ref(buf, lay, nbytes))
+                       for _ in range(3))
+        moved = 2 * lay.n * nbytes
+        bound_ms = moved / rate * 1e3
+        res[name] = dict(n=lay.n, total=lay.total, used=lay.used,
+                         row_bytes=lay.row_bytes, nbytes=nbytes, bytes=moved,
+                         bad_bytes=bad, ms=ms, plain_ms=plain_ms,
+                         library_ms=library_ms, flat_copy_ms=flat_ms,
+                         bound_ms=bound_ms, share_of_bound=bound_ms / ms)
+        log(f"[unpack] {name}: {lay.n} devices x {lay.total} rows of "
+            f"{lay.used} B (used % 16 = {lay.used % 16}) padded to "
+            f"{lay.row_bytes} B, {nbytes} B a device: byte-equal to "
+            f"unpack_ref in one launch; unpack_rows {ms!r} ms = "
+            f"{moved / ms / 1e9!r} TB/s, {bound_ms / ms!r} of its "
+            f"{bound_ms!r} ms bound ({moved} B at {rate / 1e12:.2f} TB/s); "
+            f"unpack_ref {plain_ms!r} ms; strided copy_ {library_ms!r} ms; "
+            f"flat copy_ of as many bytes {flat_ms!r} ms")
+        del buf, src
+        torch.cuda.empty_cache()
+    return res
 
 
 def calibration_cell(torch, rs, C, model, root, nbytes, sizes, what):
@@ -2486,14 +2580,17 @@ GRAD_SSD = (("mamba2-370m prefill", SSD_MAIN[:5], None),
 
 
 def counts(FA, K, rs, KS):
-    """The launch counters of K2, K3, K1 (both kernels) and EC (both)."""
+    """The launch counters of K2, K3, K1 (both kernels), EC (both) and
+    UR."""
+    from repro_torch.device import runner
     return (FA.launches, K.launches, rs.launches, rs.rounds_launches,
-            KS.launches, KS.scan_launches)
+            KS.launches, KS.scan_launches, runner.unpack_launches)
 
 
 def reset_counts(FA, K, rs, KS):
+    from repro_torch.device import runner
     FA.launches = K.launches = rs.launches = rs.rounds_launches = 0
-    KS.launches = KS.scan_launches = 0
+    KS.launches = KS.scan_launches = runner.unpack_launches = 0
 
 
 def grad_vs_plain(torch, fn, plain, inputs, what, counter):
@@ -2591,9 +2688,9 @@ def phase_train_loss(torch, FA, K, rs, KS, ref, ops, cfg, LM,
     loss_k32, g_k32 = grads_of(torch, value_and_grad, f32, batch)
     got = counts(FA, K, rs, KS)
     want = (launches, 0) if kind == "K2" else (0, launches)
-    if got != want + (0, 0, 0, 0):
-        fail(f"[train] {tag} float32 loss launched K2, K3, K1 and EC {got} "
-             f"times, expected {want + (0, 0, 0, 0)}")
+    if got != want + (0, 0, 0, 0, 0):
+        fail(f"[train] {tag} float32 loss launched K2, K3, K1, EC and UR "
+             f"{got} times, expected {want + (0, 0, 0, 0, 0)}")
     worst32 = 0.0
     for k, g in g_k32.items():
         ref_max = float(g_p32[k].abs().max())
@@ -2619,8 +2716,8 @@ def phase_train_loss(torch, FA, K, rs, KS, ref, ops, cfg, LM,
     del g_p16
     reset_counts(FA, K, rs, KS)
     loss_k16, g_k16 = grads_of(torch, value_and_grad, model, batch)
-    if counts(FA, K, rs, KS) != want + (0, 0, 0, 0):
-        fail(f"[train] {tag} bf16 loss launched K2, K3, K1 and EC "
+    if counts(FA, K, rs, KS) != want + (0, 0, 0, 0, 0):
+        fail(f"[train] {tag} bf16 loss launched K2, K3, K1, EC and UR "
              f"{counts(FA, K, rs, KS)} times")
     worst = 0.0
     for k, g in g_k16.items():
@@ -2729,10 +2826,10 @@ def phase_train_llama(torch, FA, K, rs, KS, G, steps, cfg, LM,
         losses.append(float(met["loss"]))
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
-        if counts(FA, K, rs, KS) != (cfg.layers, 0, 0, 0, 0, 0):
-            fail(f"[train] {tag} step {i} launched K2, K3, K1 and EC "
+        if counts(FA, K, rs, KS) != (cfg.layers, 0, 0, 0, 0, 0, 0):
+            fail(f"[train] {tag} step {i} launched K2, K3, K1, EC and UR "
                  f"{counts(FA, K, rs, KS)} times, expected "
-                 f"{(cfg.layers, 0, 0, 0, 0, 0)}")
+                 f"{(cfg.layers, 0, 0, 0, 0, 0, 0)}")
     peak = torch.cuda.max_memory_allocated()
     if not all(math.isfinite(x) for x in losses) or \
             not losses[-1] < losses[0]:
@@ -2805,10 +2902,10 @@ def phase_train_cli(torch, FA, K, rs, KS, steps, store, train, sup_mod,
         secs = time.perf_counter() - t0
         got = counts(FA, K, rs, KS)
         hist = state["history"]
-        want = (0, cfg.layers * CLI_STEPS, 0, 0, 0, 0)
+        want = (0, cfg.layers * CLI_STEPS, 0, 0, 0, 0, 0)
         if got != want or len(hist) != CLI_STEPS:
-            fail(f"[train] {tag} CLI: {len(hist)} steps launched K2, K3, K1 "
-                 f"and EC {got} times, expected {CLI_STEPS} and {want}")
+            fail(f"[train] {tag} CLI: {len(hist)} steps launched K2, K3, K1, "
+                 f"EC and UR {got} times, expected {CLI_STEPS} and {want}")
         if not hist[-1] < hist[0]:
             fail(f"[train] {tag} CLI: the loss did not fall: {hist}")
         size = sum(os.path.getsize(os.path.join(d, f))
@@ -2919,10 +3016,10 @@ def sharded_rank(rank, world, model_axis, store, out, backend="nccl",
     """One rank of ``[sharded]``: ``SHARDED_STEPS`` steps of
     ``make_train_step`` on a ``(world // model_axis, model_axis)`` mesh,
     params, moments and batches placed by ``param_shardings``,
-    ``opt_shardings`` and ``batch_shardings``; K2, K3, K1 and EC launches a
-    step; ms a step; the bytes of params, moments and batch as allocated;
-    the peak memory; the final parameters gathered to the host. With
-    ``world`` 1 the same steps then run unsharded from the same seed-0
+    ``opt_shardings`` and ``batch_shardings``; K2, K3, K1, EC and UR
+    launches a step; ms a step; the bytes of params, moments and batch as
+    allocated; the peak memory; the final parameters gathered to the host.
+    With ``world`` 1 the same steps then run unsharded from the same seed-0
     weights (the sharded run freed first), one more unsharded step under
     ``torch.profiler`` with ``with_flops``, and rank 0 writes both runs to
     ``out.json``."""
@@ -3067,9 +3164,9 @@ def phase_sharded(torch, layers, backend="nccl", device="cuda", count=None,
     res = spawn_ranks(sharded_rank, 1, (1, backend, device, *kw.values()),
                       "sharded")
     sh, pl = res["sharded"], res["plain"]
-    want = [layers, 0, 0, 0, 0, 0]
+    want = [layers, 0, 0, 0, 0, 0, 0]
     if any(n != want for n in sh["launches"]):
-        fail(f"[sharded] launches (K2, K3, K1 x2, EC x2) a step "
+        fail(f"[sharded] launches (K2, K3, K1 x2, EC x2, UR) a step "
              f"{sh['launches']}, expected {want} each step")
     for k in ("loss", "grad_norm"):
         if sh[k] != pl[k]:
@@ -3206,7 +3303,8 @@ def main():
     max_err = phase_kernel_vs_plain(np, torch, rs)
     rounds_err = phase_rounds_vs_plain(np, torch, rs)
     K.launches = FA.launches = 0
-    ex, x, lay, launches, subrounds, steps_on_main, secs = phase_main(
+    ex, x, lay, launches, subrounds, steps_on_main, unpacks, secs = \
+        phase_main(
         torch, rs, api, T)
     if K.launches or FA.launches:
         fail(f"the broadcast path launched ssd_scan {K.launches} and "
@@ -3226,6 +3324,13 @@ def main():
         f"permute_rounds {regs['permute_rounds']}")
     del ex, x
     torch.cuda.empty_cache()
+    ur = phase_unpack(torch, runner, lay, rate)
+    ur_head = ur[UNPACK_SHAPES[0][0]]
+    log(f"[summary] {name}: UR at {UNPACK_SHAPES[0][0]} 128e6 B, 256 "
+        f"devices: {ur_head['ms']!r} ms, {ur_head['share_of_bound']!r} of "
+        f"its {ur_head['bound_ms']!r} ms bound; unpack_ref "
+        f"{ur_head['plain_ms']!r} ms; unpack_rows "
+        f"{regs['unpack_rows']}")
     K.launches = FA.launches = 0
     cal = phase_calibrate(torch, rs, api, T)
     if K.launches or FA.launches:
@@ -3397,6 +3502,20 @@ def main():
         "bound_ms": tm["step_bound_ms"], "bound_by": "bytes",
         "library_ms": tm["step_library_ms"],
         "eager_ms": tm["step_eager_ms"], "timed_launches": tm["subrounds"],
+    }, {
+        # the runner's copy out; ms, plain_ms, library_ms, flat_copy_ms and
+        # bound_ms at the first of UNPACK_SHAPES, "shapes" every shape held
+        # and timed; launches: on the main path, a broadcast
+        "name": "unpack_rows", "route": "cuda",
+        "source": "src/repro_torch/csrc/unpack_rows.cu",
+        "replaces": None,
+        "reference_op": "src/repro/device/runner.py:136 (an XLA slice)",
+        "launches": unpacks, "bad_bytes": 0,
+        "ms": ur_head["ms"], "plain_ms": ur_head["plain_ms"],
+        "bound_ms": ur_head["bound_ms"], "bound_by": "bytes",
+        "library_ms": ur_head["library_ms"],
+        "flat_copy_ms": ur_head["flat_copy_ms"], "shape": UNPACK_SHAPES[0][0],
+        "shapes": ur, **regs["unpack_rows"],
     }, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",

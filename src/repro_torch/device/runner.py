@@ -19,9 +19,15 @@ device's copy as ``(n,) + x.shape`` with relay rows and padding dropped.
 Rows are raw bytes (padded to a multiple of 16), so every dtype comes
 through bit-exact.
 
+The copy out (``unpack``) is one launch of the hand-written CUDA kernel
+``csrc/unpack_rows.cu`` on a GPU (``unpack_rows``) and the plain version
+``unpack_ref`` on the CPU. ``unpack_launches`` counts the kernel's
+launches and ``unpack_bytes`` the bytes they read and wrote.
+
 While ``repro_torch.spans`` records, a broadcast opens ``runner.pack``,
-``runner.cycles`` and ``runner.unpack``, and a lowering ``lower.moves``
-around ``lower.slot_tables``, ``lower.compact_moves`` and ``lower.upload``.
+``runner.cycles`` and ``runner.unpack`` (on a GPU: the one ``unpack_rows``
+launch), and a lowering ``lower.moves`` around ``lower.slot_tables``,
+``lower.compact_moves`` and ``lower.upload``.
 
 ``binomial_broadcast`` and ``chain_broadcast`` are the reference's two
 whole-message baselines in plain torch on the same virtual mesh (the JAX
@@ -30,6 +36,7 @@ versions use no Pallas kernel either).
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -39,6 +46,11 @@ from repro_torch import spans
 from repro_torch.device.round_step import (Moves, compact_moves,
                                            permute_rounds, permute_step)
 from repro_torch.device.schedule import _NOSEND, DeviceSchedule
+
+unpack_launches = 0   # kernel launches of unpack_rows since the last reset
+unpack_bytes = 0      # bytes those launches read plus wrote
+
+_unpack_fn = None
 
 
 def resolve_device(device) -> torch.device:
@@ -183,19 +195,83 @@ def run_cycles(buf: torch.Tensor, tabs: torch.Tensor = None,
     return buf
 
 
+def unpack_ref(buf: torch.Tensor, lay: PacketLayout,
+               nbytes: int) -> torch.Tensor:
+    """The plain version of ``unpack_rows``: every device's first
+    ``nbytes`` payload bytes as a fresh uint8 ``[n, nbytes]`` tensor, in
+    two strided copies out of ``buf``."""
+    out = torch.empty((lay.n, nbytes), dtype=torch.uint8, device=buf.device)
+    full, rem = divmod(nbytes, lay.used)
+    out[:, :full * lay.used].view(lay.n, full, lay.used).copy_(
+        buf[:, :full, :lay.used])
+    if rem:
+        out[:, full * lay.used:] = buf[:, full, :rem]
+    return out
+
+
+def _unpack_kernel():
+    global _unpack_fn
+    if _unpack_fn is None:
+        from repro_torch.nvcc import load
+        fn = load("unpack_rows").unpack_rows
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] + \
+            [ctypes.c_longlong] * 4 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _unpack_fn = fn
+    return _unpack_fn
+
+
+def unpack_rows(buf: torch.Tensor, lay: PacketLayout,
+                nbytes: int) -> torch.Tensor:
+    """``unpack_ref``'s result from one launch of ``csrc/unpack_rows.cu``
+    on ``buf``'s GPU, on the current stream. Every check raises before the
+    kernel is built or launched."""
+    global unpack_launches, unpack_bytes
+    if (buf.dtype != torch.uint8 or not buf.is_contiguous()
+            or tuple(buf.shape) != (lay.n, lay.rows, lay.row_bytes)):
+        raise ValueError(f"buf must be a contiguous uint8 [n, rows, "
+                         f"row_bytes] = {(lay.n, lay.rows, lay.row_bytes)} "
+                         f"tensor, got {buf.dtype} {tuple(buf.shape)}")
+    if lay.row_bytes % 16 or lay.used > lay.row_bytes:
+        raise ValueError(f"the kernel reads 16-byte chunks: row_bytes "
+                         f"{lay.row_bytes} must be a multiple of 16 and "
+                         f"hold used {lay.used}")
+    if not 0 <= nbytes <= lay.total * lay.used:
+        raise ValueError(f"{nbytes} bytes do not fit {lay.total} packet "
+                         f"rows of {lay.used}")
+    if buf.device.type != "cuda":
+        raise ValueError(f"unpack_rows runs on cuda, not {buf.device}; "
+                         f"unpack_ref is the plain version")
+    if buf.data_ptr() % 16:
+        raise ValueError("the buffer's address must be a multiple of 16")
+    out = torch.empty((lay.n, nbytes), dtype=torch.uint8, device=buf.device)
+    if lay.n == 0 or nbytes == 0:
+        return out
+    fn = _unpack_kernel()
+    with torch.cuda.device(buf.device):
+        stream = torch.cuda.current_stream(buf.device).cuda_stream
+        rc = fn(buf.data_ptr(), out.data_ptr(), lay.n, lay.rows,
+                lay.row_bytes, lay.used, nbytes, stream)
+    if rc != 0:
+        raise RuntimeError(f"unpack_rows kernel launch failed: CUDA error "
+                           f"{rc}")
+    unpack_launches += 1
+    unpack_bytes += 2 * lay.n * nbytes
+    return out
+
+
 def unpack(buf: torch.Tensor, lay: PacketLayout,
            x: torch.Tensor) -> torch.Tensor:
     """Every device's copy, stacked as ``(n,) + x.shape`` in ``x``'s dtype,
-    with relay rows and padding dropped (one copy out of ``buf``)."""
+    with relay rows and padding dropped (one copy out of ``buf``): one
+    ``unpack_rows`` launch for a CUDA ``buf``, ``unpack_ref`` for a CPU
+    one."""
     with spans.span("runner.unpack"):
         nbytes = x.numel() * x.element_size()
-        out = torch.empty((lay.n, nbytes), dtype=torch.uint8,
-                          device=buf.device)
-        full, rem = divmod(nbytes, lay.used)
-        out[:, :full * lay.used].view(lay.n, full, lay.used).copy_(
-            buf[:, :full, :lay.used])
-        if rem:
-            out[:, full * lay.used:] = buf[:, full, :rem]
+        if buf.device.type == "cuda":
+            out = unpack_rows(buf, lay, nbytes)
+        else:
+            out = unpack_ref(buf, lay, nbytes)
         return out.view(x.dtype).reshape((lay.n,) + tuple(x.shape))
 
 

@@ -18,7 +18,7 @@ The spans the port opens, in layer order::
     bcast.run          ExecutablePlan.run on one card        (request=True)
       runner.pack      runner.pack
       runner.cycles    runner.bbs_broadcast around run_cycles (K1)
-      runner.unpack    runner.unpack
+      runner.unpack    runner.unpack (on a GPU: one unpack_rows launch)
     lower.executable   build_executable
       lower.schedule   each make_device_schedule inside it
     lower.moves        runner.build_moves / build_tables

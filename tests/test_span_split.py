@@ -218,3 +218,17 @@ def test_split_refuses_a_window_whose_runs_do_not_match(tool):
     with pytest.raises(RuntimeError):
         tool.split([], [], [{"root": 0, "nbytes": 1, "t0": 0.0, "t1": 1.0}],
                    0.0, 1.0)
+
+
+def test_unpack_share_of_the_hbm_peak_by_shape(tool):
+    """``unpack_hbm_pct``: 2 x n x nbytes at 3.35 TB/s over the unpack's
+    device ms a request, by shape; a shape with no unpack time is left
+    out."""
+    per_shape = {"0/128000000": {"runner.pack": 10.0, "runner.cycles": 30.0,
+                                 "runner.unpack": 25.0},
+                 "17/4000000": {"runner.pack": 0.3, "runner.cycles": 2.0,
+                                "runner.unpack": 0.0}}
+    got = tool.unpack_hbm_pct(per_shape, 256)
+    assert got == {"0/128000000": pytest.approx(
+        100 * 2 * 256 * 128e6 / 3.35e12 / 25e-3)}
+    assert 78 < got["0/128000000"] < 79

@@ -1,9 +1,10 @@
 """Port tests that need an NVIDIA GPU (marker ``cuda``): the hand-written
 kernels (the round step K1 -- one sub-round a launch, and every sub-round
 of a broadcast in one persistent launch, also as the calibration's ring
-rounds --, flash attention K2, the SSD scan K3, the simulator's event
-core) against their plain PyTorch versions, small broadcasts on the card
-against the same broadcasts on the CPU, the calibration across the GPUs of
+rounds --, the runner's copy out ``unpack_rows``, flash attention K2, the
+SSD scan K3, the simulator's event core) against their plain PyTorch
+versions, small broadcasts on the card against the same broadcasts on the
+CPU, the calibration across the GPUs of
 an NCCL group (two GPUs or more), and the LMs of every family on the
 card against the CPU. They skip on a host
 without a GPU; on the card run them with
@@ -14,6 +15,8 @@ without a GPU; on the card run them with
 import numpy as np
 import pytest
 import torch
+
+from unpack_cases import LAYOUTS, REAL, layout, layout_id
 
 pytestmark = pytest.mark.cuda
 
@@ -245,6 +248,119 @@ def test_rounds_kernel_rejects_bad_inputs(gpu):
     blocks, threads = rs.rounds_grid(gpu)
     assert blocks >= torch.cuda.get_device_properties(gpu) \
         .multi_processor_count and threads > 0
+
+
+def _unpack_case(gpu, lay, seed):
+    g = torch.Generator(device=gpu).manual_seed(seed)
+    return torch.randint(0, 256, (lay.n, lay.rows, lay.row_bytes),
+                         dtype=torch.uint8, device=gpu, generator=g)
+
+
+def _unpack_holds(buf, lay, x):
+    """``unpack`` on the card against ``unpack_ref``: one launch, its bytes
+    counted, every byte equal, a fresh contiguous tensor in x's dtype."""
+    from repro_torch.device import runner
+
+    nbytes = x.numel() * x.element_size()
+    before = (runner.unpack_launches, runner.unpack_bytes)
+    got = runner.unpack(buf, lay, x)
+    want = runner.unpack_ref(buf, lay, nbytes)
+    torch.cuda.synchronize()
+    assert (runner.unpack_launches - before[0],
+            runner.unpack_bytes - before[1]) == (1, 2 * lay.n * nbytes)
+    assert got.dtype == x.dtype and got.shape == (lay.n,) + tuple(x.shape)
+    assert got.is_contiguous() and got.device == buf.device
+    assert got.untyped_storage().data_ptr() != \
+        buf.untyped_storage().data_ptr()
+    assert torch.equal(got.reshape(lay.n, -1).view(torch.uint8), want)
+
+
+@pytest.mark.parametrize("case", LAYOUTS, ids=layout_id)
+def test_unpack_kernel_matches_plain(gpu, case):
+    """``unpack_rows`` byte-equal to ``unpack_ref`` on random buffers
+    (padding and relay rows random too) in every dtype and alignment."""
+    dtype, numel = case[0], case[5]
+    lay, _ = layout(*case)
+    x = torch.empty(numel, dtype=getattr(torch, dtype), device=gpu)
+    _unpack_holds(_unpack_case(gpu, lay, numel), lay, x)
+
+
+@pytest.mark.parametrize("total,used,row_bytes,nbytes", REAL)
+def test_unpack_kernel_on_the_cells_shapes(gpu, total, used, row_bytes,
+                                           nbytes):
+    """The cells' layouts at their full payloads, on two devices."""
+    from repro_torch.device.runner import PacketLayout
+
+    lay = PacketLayout(n=2, total=total, relay=0, plen=used // 4, used=used,
+                       row_bytes=row_bytes)
+    x = torch.empty(nbytes // 4, dtype=torch.float32, device=gpu)
+    _unpack_holds(_unpack_case(gpu, lay, total), lay, x)
+
+
+def test_unpack_kernel_past_2_31_bytes(gpu):
+    """An output and a buffer over 2**31 bytes, rows of used % 16 = 4 and a
+    remainder: 64-bit offsets; the last device's last bytes equal too."""
+    from repro_torch.device import runner
+    from repro_torch.device.runner import PacketLayout
+
+    n, plen, nbytes = 5, 10001, 480_000_004
+    used = 4 * plen
+    lay = PacketLayout(n=n, total=-(-nbytes // used), relay=0, plen=plen,
+                       used=used, row_bytes=-(-used // 16) * 16)
+    assert n * nbytes > 2 ** 31 and lay.buffer_bytes > 2 ** 31
+    buf = _unpack_case(gpu, lay, 11)
+    x = torch.empty(nbytes // 4, dtype=torch.float32, device=gpu)
+    got = runner.unpack(buf, lay, x).view(torch.uint8).reshape(n, -1)
+    full, rem = divmod(nbytes, used)
+    torch.cuda.synchronize()
+    assert torch.equal(got[n - 1, -rem:], buf[n - 1, full, :rem])
+    assert torch.equal(got[n - 1, full * used - used:full * used],
+                       buf[n - 1, full - 1, :used])
+    assert torch.equal(got, runner.unpack_ref(buf, lay, nbytes))
+
+
+def test_broadcast_unpacks_in_one_launch(gpu):
+    """``ExecutablePlan.run`` on the card: one ``unpack_rows`` launch of
+    2 x n x nbytes bytes a broadcast, and ``verify`` holds."""
+    from repro_torch import api
+    from repro_torch.core import topology as T
+    from repro_torch.device import runner
+
+    model = api.compile(T.mesh2d(4, 4))
+    ex = model.executable(root=5, nbytes=400_004)
+    x = ex.default_payload(seed=4)
+    before = (runner.unpack_launches, runner.unpack_bytes)
+    out = ex.run(x)
+    torch.cuda.synchronize()
+    assert (runner.unpack_launches - before[0],
+            runner.unpack_bytes - before[1]) == (1, 2 * 16 * 400_004)
+    xb = x.to(gpu).view(torch.uint8)
+    assert all(torch.equal(out[v].view(torch.uint8), xb) for v in range(16))
+    assert ex.verify(x).ok
+
+
+def test_unpack_kernel_rejects_bad_inputs(gpu):
+    from repro_torch.device import runner
+    from repro_torch.device.runner import PacketLayout
+
+    lay = PacketLayout(n=4, total=5, relay=0, plen=1001, used=4004,
+                       row_bytes=4016)
+    nbytes = 4 * 4004 + 12
+    buf = torch.zeros((4, 6, 4016), dtype=torch.uint8, device=gpu)
+    before = runner.unpack_launches
+    with pytest.raises(ValueError):          # not contiguous
+        runner.unpack_rows(buf[:, 1:], lay, nbytes)
+    with pytest.raises(ValueError):          # on the CPU
+        runner.unpack_rows(buf[:, 1:].cpu(), lay, nbytes)
+    with pytest.raises(ValueError):          # a row of 20 bytes
+        runner.unpack_rows(
+            torch.zeros((4, 5, 20), dtype=torch.uint8, device=gpu),
+            PacketLayout(n=4, total=5, relay=0, plen=5, used=20,
+                         row_bytes=20), 80)
+    flat = torch.zeros(4 * 5 * 4016 + 1, dtype=torch.uint8, device=gpu)
+    with pytest.raises(ValueError):          # an address off the 16 B grid
+        runner.unpack_rows(flat[1:].view(4, 5, 4016), lay, nbytes)
+    assert runner.unpack_launches == before
 
 
 @pytest.mark.parametrize("n,nbytes", [(8, 8 << 10), (8, 1 << 20),

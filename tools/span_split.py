@@ -18,15 +18,20 @@ It reports, as one JSON line on stdout (and in ``--out``):
   outermost ``lower.*`` spans, beside the ``executables`` phase that holds
   them; the warm-up's host seconds by span;
 * ``windows``: each window's p50, p95, payload rate and the host time of
-  ``ExecutablePlan.run`` up to its return (before the synchronize);
+  ``ExecutablePlan.run`` up to its return (before the synchronize), and
+  the window's growth of ``runner.unpack_launches`` and
+  ``runner.unpack_bytes`` (the ``unpack_rows`` kernel's launches, and the
+  bytes they read and wrote);
 * ``traced``: each device operation of the traced windows joined to the
   CUDA runtime call that launched it (the profiler's correlation ids) and
   so to the innermost span holding the launch: device ms a request under
   ``runner.pack``, ``runner.cycles`` and ``runner.unpack``, the device
   seconds no span claims, the device's idle time by the span it falls in
   (split by overlap), K1's ``round_step.moved_bytes`` against the least
-  bytes (``bcastbench.roofline``) and against the plans' own count, and the
-  readings the benchmark takes by kernel name beside them;
+  bytes (``bcastbench.roofline``) and against the plans' own count,
+  ``runner.unpack``'s share of the HBM peak on the bytes ``unpack_rows``
+  moves, by shape (``unpack_hbm_pct``), and the readings the benchmark
+  takes by kernel name beside them;
 * ``span_ns``: the host cost of one span, off and on.
 
 Times come from the profiler's clock. ``bcastbench.devtrace.Tracer`` ties
@@ -407,6 +412,20 @@ def span_cost(count: int = 200_000) -> dict:
     return out
 
 
+def unpack_hbm_pct(per_shape: Dict[str, Dict[str, float]], n: int
+                   ) -> Dict[str, float]:
+    """By shape ``root/nbytes``: the bytes ``unpack_rows`` reads and
+    writes (2 x n x nbytes) at the HBM peak over ``runner.unpack``'s device
+    ms a request, %."""
+    out = {}
+    for shape, ms in per_shape.items():
+        dev_s = ms["runner.unpack"] / 1e3
+        nbytes = int(shape.split("/")[1])
+        if dev_s > 0:
+            out[shape] = 100.0 * roofline.least_seconds(2 * n * nbytes) / dev_s
+    return out
+
+
 def measure(cell, seed: int, seconds: float, device: torch.device) -> dict:
     st = build(cell, seed, device)
     log(f"[setup] {json.dumps(st['setup'])}")
@@ -427,11 +446,14 @@ def measure(cell, seed: int, seconds: float, device: torch.device) -> dict:
             tracer = LaunchTracer(device)
             tracer.start()
         moved0 = round_step.moved_bytes
+        unpack0 = (runner.unpack_launches, runner.unpack_bytes)
         served = serve(st, seed + i, seconds, device)
         moved = round_step.moved_bytes - moved0
         dev = tracer.stop() if tracer else None
         recorded = spans.stop() if mode != "off" else []
-        row = dict(mode=mode, **summary(served))
+        row = dict(mode=mode, **summary(served),
+                   unpack_launches=runner.unpack_launches - unpack0[0],
+                   unpack_bytes=runner.unpack_bytes - unpack0[1])
         windows.append(row)
         log(f"[window {i}] {json.dumps(row)}")
         if dev is None:
@@ -453,7 +475,8 @@ def measure(cell, seed: int, seconds: float, device: torch.device) -> dict:
             k1_roofline_pct=100.0 * roofline.least_seconds(least) / k1
             if k1 else None,
             k1_hbm_pct=100.0 * roofline.least_seconds(moved) / k1
-            if k1 else None)
+            if k1 else None,
+            unpack_hbm_pct=unpack_hbm_pct(got["per_shape_dev_ms"], st["n"]))
         traced.append(got)
         log(f"[traced {i}] {json.dumps(got)}")
     return {"cell": cell.name, "seed": seed, "seconds": seconds,
