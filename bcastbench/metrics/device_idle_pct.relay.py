@@ -1,0 +1,13 @@
+"""``device_idle_pct.large`` read in the butterfly's cell, whose two-tree
+plans carry relay rows: the reader beside this file, loaded by its path,
+so that the cells read the same thing."""
+
+from pathlib import Path
+
+from bcastbench.manifest import load_module
+
+_large = load_module(Path(__file__).with_name("device_idle_pct.large.py"))
+
+
+def read(rec):
+    return _large.read(rec)

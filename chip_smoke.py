@@ -727,10 +727,7 @@ def phase_timing(np, torch, rs, runner, ex, x, lay, rate, secs):
                                          for t in flat_tabs])
                         for _ in range(2))
 
-    idle = rs.Moves(pairs=moves.pairs[:0], offs=torch.zeros_like(moves.offs),
-                    counts=np.zeros_like(moves.counts), n=moves.n,
-                    rows=moves.rows, moves_cum=np.zeros_like(moves.moves_cum),
-                    zeros_cum=np.zeros_like(moves.zeros_cum))
+    idle = moves.idle()
     barrier_ms = min(cuda_ms(lambda: rs.permute_rounds(buf, idle))
                      for _ in range(3))
     reps = 10

@@ -32,7 +32,8 @@ buffer. Its plain version ``permute_rounds_ref`` applies them sub-round by
 sub-round. ``rounds_launches`` counts its launches and ``subrounds`` the
 sub-rounds they ran; ``moved_bytes`` counts the HBM bytes of rows that
 every ``permute_rounds`` call, on the card or the plain path, reads and
-writes (``Moves.moved_bytes``).
+writes (``Moves.moved_bytes``), and ``relay_bytes`` the part of them moved
+by moves that read or write a relay row (``Moves.relay_bytes``).
 """
 
 from __future__ import annotations
@@ -48,6 +49,7 @@ launches = 0          # kernel launches of permute_step since the last reset
 rounds_launches = 0   # kernel launches of permute_rounds since the last reset
 subrounds = 0         # sub-rounds those permute_rounds launches ran
 moved_bytes = 0       # row bytes permute_rounds calls read and wrote
+relay_bytes = 0       # the part of them moved by moves touching a relay row
 
 _fn = None
 _rounds_lib = None
@@ -156,7 +158,9 @@ class Moves:
     ``pairs[offs[s]:offs[s + 1]]``. ``counts`` is the host copy of each
     sub-round's number of pairs, and ``n, rows`` the buffer they index.
     ``moves_cum`` and ``zeros_cum`` (int64 ``[S + 1]``, on the host) are
-    prefix sums of the pairs and of the zero writes by sub-round."""
+    prefix sums of the pairs and of the zero writes by sub-round;
+    ``relay_cum`` and ``relay_zeros_cum`` the same of the pairs that read
+    or write a relay row (``compact_moves``' ``packets`` and on)."""
 
     pairs: torch.Tensor
     offs: torch.Tensor
@@ -165,6 +169,8 @@ class Moves:
     rows: int
     moves_cum: np.ndarray
     zeros_cum: np.ndarray
+    relay_cum: np.ndarray
+    relay_zeros_cum: np.ndarray
 
     @property
     def num_subrounds(self) -> int:
@@ -178,6 +184,15 @@ class Moves:
         return dataclasses.replace(self, pairs=self.pairs.to(device),
                                    offs=self.offs.to(device))
 
+    def idle(self) -> "Moves":
+        """The same sub-rounds with no move in any: ``permute_rounds`` on
+        them runs K1's grid barriers alone."""
+        zero = np.zeros_like(self.moves_cum)
+        return dataclasses.replace(
+            self, pairs=self.pairs[:0], offs=torch.zeros_like(self.offs),
+            counts=np.zeros_like(self.counts), moves_cum=zero,
+            zeros_cum=zero, relay_cum=zero, relay_zeros_cum=zero)
+
     def moved_bytes(self, s0: int, s1: int, row_bytes: int) -> int:
         """HBM bytes of rows that sub-rounds ``[s0, s1)`` read and write on
         rows of ``row_bytes``: every move writes a row, and every move but a
@@ -186,11 +201,26 @@ class Moves:
         zeros = int(self.zeros_cum[s1] - self.zeros_cum[s0])
         return (2 * moves - zeros) * row_bytes
 
+    def relay_bytes(self, s0: int, s1: int, row_bytes: int) -> int:
+        """The part of ``moved_bytes(s0, s1, row_bytes)`` moved by the moves
+        that read or write a relay row: both rows of such a move, or the
+        row it writes if it is a zero write."""
+        moves = int(self.relay_cum[s1] - self.relay_cum[s0])
+        zeros = int(self.relay_zeros_cum[s1] - self.relay_zeros_cum[s0])
+        return (2 * moves - zeros) * row_bytes
 
-def compact_moves(tabs: np.ndarray, rows: int) -> Moves:
+
+def _prefix(per_subround: np.ndarray) -> np.ndarray:
+    return np.concatenate([[0], np.cumsum(per_subround)]).astype(np.int64)
+
+
+def compact_moves(tabs: np.ndarray, rows: int,
+                  packets: Optional[int] = None) -> Moves:
     """The moves of a sequence of sub-round tables (int ``[..., 5, n]``, the
     leading dimensions flattened in order) on a buffer of ``rows`` rows per
-    device, on the CPU. Raises if a live index lies outside ``[0, rows)``."""
+    device, on the CPU; rows ``[packets, rows)`` of each device are relay
+    rows (none by default). Raises if a live index lies outside
+    ``[0, rows)``."""
     tabs = np.asarray(tabs)
     n = tabs.shape[-1]
     t = tabs.reshape(-1, 5, n).astype(np.int64)
@@ -204,17 +234,19 @@ def compact_moves(tabs: np.ndarray, rows: int) -> Moves:
         if bad.any():
             raise ValueError(f"a sub-round table indexes a row outside "
                              f"[0, {rows})")
+    packets = rows if packets is None else packets
     v = np.arange(n, dtype=np.int64)[None]
     src_row = np.where(live, u * rows + s_row, -1)
     pairs = np.stack([(v * rows + r_ix)[write], src_row[write]], axis=1)
     counts = write.sum(axis=1).astype(np.int64)
-    offs = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
-    zeros = (write & ~live).sum(axis=1)
+    offs = _prefix(counts)
+    zero = write & ~live
+    relay = write & ((r_ix >= packets) | (live & (s_row >= packets)))
     return Moves(pairs=torch.from_numpy(np.ascontiguousarray(pairs)),
                  offs=torch.from_numpy(offs), counts=counts, n=n, rows=rows,
-                 moves_cum=offs,
-                 zeros_cum=np.concatenate([[0], np.cumsum(zeros)]).astype(
-                     np.int64))
+                 moves_cum=offs, zeros_cum=_prefix(zero.sum(axis=1)),
+                 relay_cum=_prefix(relay.sum(axis=1)),
+                 relay_zeros_cum=_prefix((relay & zero).sum(axis=1)))
 
 
 def _span(moves: Moves, s0: int, s1: Optional[int]) -> Tuple[int, int]:
@@ -298,13 +330,14 @@ def permute_rounds(buf: torch.Tensor, moves: Moves, s0: int = 0,
     devices, in place: one launch of the persistent CUDA kernel for a CUDA
     ``buf``, ``permute_rounds_ref`` for a CPU ``buf``. A refused launch
     raises; nothing falls back to one launch per sub-round. Either way
-    ``moved_bytes`` grows by the bytes the sub-rounds move."""
-    global rounds_launches, subrounds, moved_bytes
+    ``moved_bytes`` and ``relay_bytes`` grow by the bytes the sub-rounds
+    move."""
+    global rounds_launches, subrounds
     _check_rounds(buf, moves)
     s0, s1 = _span(moves, s0, s1)
     if buf.device.type == "cpu":
         permute_rounds_ref(buf, moves, s0, s1)
-        moved_bytes += moves.moved_bytes(s0, s1, buf.shape[2])
+        _count_bytes(moves, s0, s1, buf.shape[2])
         return buf
     if buf.device.type != "cuda":
         raise ValueError(f"permute_rounds runs on cuda or cpu, not "
@@ -333,5 +366,11 @@ def permute_rounds(buf: torch.Tensor, moves: Moves, s0: int = 0,
                            f"error {rc}")
     rounds_launches += 1
     subrounds += s1 - s0
-    moved_bytes += moves.moved_bytes(s0, s1, row_bytes)
+    _count_bytes(moves, s0, s1, row_bytes)
     return buf
+
+
+def _count_bytes(moves: Moves, s0: int, s1: int, row_bytes: int) -> None:
+    global moved_bytes, relay_bytes
+    moved_bytes += moves.moved_bytes(s0, s1, row_bytes)
+    relay_bytes += moves.relay_bytes(s0, s1, row_bytes)

@@ -116,14 +116,15 @@ def build_tables(sched: DeviceSchedule, num_groups: int,
 def build_moves(sched: DeviceSchedule, num_groups: int,
                 device="cuda") -> Moves:
     """``slot_tables`` compacted to the moves that happen
-    (``round_step.compact_moves``), on the device, for ``permute_rounds``."""
+    (``round_step.compact_moves``, the relay rows after the ``m*K`` packet
+    rows), on the device, for ``permute_rounds``."""
     with spans.span("lower.moves"):
         dev = resolve_device(device)
-        rows = num_groups * sched.K + sched.num_relay
+        total = num_groups * sched.K
         with spans.span("lower.slot_tables"):
             tabs = slot_tables(sched, num_groups)
         with spans.span("lower.compact_moves"):
-            moves = compact_moves(tabs, rows)
+            moves = compact_moves(tabs, total + sched.num_relay, total)
         with spans.span("lower.upload"):
             return moves.to(dev)
 

@@ -232,3 +232,15 @@ def test_unpack_share_of_the_hbm_peak_by_shape(tool):
     assert got == {"0/128000000": pytest.approx(
         100 * 2 * 256 * 128e6 / 3.35e12 / 25e-3)}
     assert 78 < got["0/128000000"] < 79
+
+
+def test_relay_share_by_shape(tool):
+    """``relay_pct``: the relay bytes over K1's moved bytes of each shape's
+    requests, from each request's growth of the two counters; a shape whose
+    requests moved nothing is left out."""
+    served = [{"root": 0, "nbytes": 4, "moved": 100, "relay": 12},
+              {"root": 0, "nbytes": 4, "moved": 300, "relay": 28},
+              {"root": 17, "nbytes": 4, "moved": 50, "relay": 0},
+              {"root": 0, "nbytes": 8, "moved": 0, "relay": 0}]
+    assert tool.relay_pct(served) == {"0/4": pytest.approx(10.0),
+                                      "17/4": 0.0}

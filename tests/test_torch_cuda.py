@@ -117,6 +117,44 @@ def test_small_broadcast_on_card_matches_cpu(gpu, algo):
     assert ex.verify(x).ok
 
 
+@pytest.mark.parametrize("nbytes", [64_000, 1_000_000])
+def test_butterfly_relay_broadcast_on_card_matches_cpu(gpu, nbytes):
+    """A flattened butterfly's two-tree plan, whose relay chains write and
+    read relay rows: on the card one ``permute_rounds`` and one
+    ``unpack_rows`` launch, bit-equal to the CPU's path, and the relay
+    bytes the card's launch counts equal those of the same moves run by
+    the plain version on the CPU."""
+    from repro_torch import api
+    from repro_torch.core import topology as T
+    from repro_torch.core.simconfig import DeviceConfig, SimConfig
+    from repro_torch.device import round_step as rs
+    from repro_torch.device import runner
+
+    model = api.compile(T.butterfly(32))
+    ex = model.executable(root=7, nbytes=nbytes)
+    assert ex.candidate == "two_tree" and ex.schedule.num_relay > 0
+    x = ex.default_payload(seed=32)
+    before = (rs.rounds_launches, rs.subrounds, rs.relay_bytes,
+              runner.unpack_launches)
+    out = ex.run(x)
+    torch.cuda.synchronize()
+    card_relay = rs.relay_bytes - before[2]
+    assert (rs.rounds_launches - before[0], rs.subrounds - before[1],
+            runner.unpack_launches - before[3]) == (1, ex.num_subrounds, 1)
+    cpu_ex = model.executable(root=7, nbytes=nbytes, config=SimConfig(
+        device=DeviceConfig(device="cpu")))
+    assert torch.equal(out.cpu().view(torch.uint8),
+                       cpu_ex.run(x).view(torch.uint8))
+    lay = runner.packet_layout(x, cpu_ex.schedule, cpu_ex.num_groups)
+    buf = runner.pack(x, lay, 7, torch.device("cpu"))
+    cpu0 = rs.relay_bytes
+    rs.permute_rounds(buf, runner.build_moves(
+        cpu_ex.schedule, cpu_ex.num_groups, "cpu"))
+    assert card_relay == rs.relay_bytes - cpu0 > 0
+    assert torch.equal(runner.unpack_ref(buf, lay, nbytes),
+                       out.cpu().reshape(32, -1).view(torch.uint8))
+
+
 def _rounds_buffer(gpu, rng, n, rows, row_bytes):
     return torch.from_numpy(rng.integers(0, 256, (n, rows, row_bytes),
                                          dtype=np.uint8)).to(gpu)
@@ -176,6 +214,9 @@ def test_rounds_kernel_span_and_barrier_only(gpu):
     idle = tabs.copy()
     idle[:, 4] = 0
     got = rs.permute_rounds(buf.clone(), rs.compact_moves(idle, rows).to(gpu))
+    torch.cuda.synchronize()
+    assert torch.equal(got, buf)
+    got = rs.permute_rounds(buf.clone(), moves.idle())
     torch.cuda.synchronize()
     assert torch.equal(got, buf)
 

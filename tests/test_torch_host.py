@@ -25,6 +25,9 @@ FABRICS = {
     "hypercube3": lambda T: T.hypercube(3),
     "mesh2d_3x3": lambda T: T.mesh2d(3, 3),
     "mesh2d_16x16": lambda T: T.mesh2d(16, 16),
+    "butterfly32": lambda T: T.butterfly(32),
+    "dragonfly64": lambda T: T.dragonfly(64),
+    "fat_tree64": lambda T: T.fat_tree(64),
 }
 
 

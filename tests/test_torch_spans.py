@@ -255,6 +255,8 @@ def test_prefix_sums_come_through_to():
     moved = moves.to("cpu")
     assert moved.moves_cum is moves.moves_cum
     assert moved.zeros_cum is moves.zeros_cum
+    assert moved.relay_cum is moves.relay_cum
+    assert moved.relay_zeros_cum is moves.relay_zeros_cum
     assert np.array_equal(moves.moves_cum, moves.offs.numpy())
     zero = (moves.pairs[:, 1] < 0).numpy()
     assert [int(zero[moves.moves_cum[s]:moves.moves_cum[s + 1]].sum())
@@ -265,15 +267,17 @@ def test_prefix_sums_come_through_to():
 def test_moved_bytes_of_an_executable_broadcast():
     """On a real plan's moves, the counter reads what the pairs ask, and
     at least the least bytes of the broadcast (every copy written, the
-    payload read)."""
+    payload read); a mesh's plan has no relay rows, so the relay counter
+    stays where it was."""
     ex = _mesh_exe(nbytes=64000, root=0)
     moves = ex.moves()
     x = ex.default_payload()
     from repro_torch.device import runner
     lay = runner.packet_layout(x, ex.schedule, ex.num_groups)
     buf = runner.pack(x, lay, ex.root, torch.device("cpu"))
-    before = rs.moved_bytes
+    before = (rs.moved_bytes, rs.relay_bytes)
     rs.permute_rounds(buf, moves)
-    got = rs.moved_bytes - before
+    got = rs.moved_bytes - before[0]
     assert got == _count(moves, 0, moves.num_subrounds, lay.row_bytes)
     assert got >= 16 * 64000
+    assert ex.schedule.num_relay == 0 and rs.relay_bytes == before[1]

@@ -18,20 +18,23 @@ It reports, as one JSON line on stdout (and in ``--out``):
   outermost ``lower.*`` spans, beside the ``executables`` phase that holds
   them; the warm-up's host seconds by span;
 * ``windows``: each window's p50, p95, payload rate and the host time of
-  ``ExecutablePlan.run`` up to its return (before the synchronize), and
-  the window's growth of ``runner.unpack_launches`` and
+  ``ExecutablePlan.run`` up to its return (before the synchronize), the
+  window's growth of ``runner.unpack_launches`` and
   ``runner.unpack_bytes`` (the ``unpack_rows`` kernel's launches, and the
-  bytes they read and wrote);
+  bytes they read and wrote), and by shape the share of K1's
+  ``round_step.moved_bytes`` that moves reading or writing a relay row
+  moved (``round_step.relay_bytes``; ``k1_relay_pct``);
 * ``traced``: each device operation of the traced windows joined to the
   CUDA runtime call that launched it (the profiler's correlation ids) and
   so to the innermost span holding the launch: device ms a request under
   ``runner.pack``, ``runner.cycles`` and ``runner.unpack``, the device
   seconds no span claims, the device's idle time by the span it falls in
   (split by overlap), K1's ``round_step.moved_bytes`` against the least
-  bytes (``bcastbench.roofline``) and against the plans' own count,
-  ``runner.unpack``'s share of the HBM peak on the bytes ``unpack_rows``
-  moves, by shape (``unpack_hbm_pct``), and the readings the benchmark
-  takes by kernel name beside them;
+  bytes (``bcastbench.roofline``) and against the plans' own count, with
+  ``round_step.relay_bytes`` beside it, ``runner.unpack``'s share of the
+  HBM peak on the bytes ``unpack_rows`` moves, by shape
+  (``unpack_hbm_pct``), and the readings the benchmark takes by kernel
+  name beside them;
 * ``span_ns``: the host cost of one span, off and on.
 
 Times come from the profiler's clock. ``bcastbench.devtrace.Tracer`` ties
@@ -371,6 +374,7 @@ def serve(st: dict, seed: int, seconds: float, device: torch.device
     deadline = time.perf_counter() + seconds
     for req in gen.stream(mix, seed, n, esize):
         ex = st["exes"][(req.root, req.nbytes)]
+        k1 = (round_step.moved_bytes, round_step.relay_bytes)
         t0 = time.perf_counter()
         y = ex.run(st["pool"][req.nbytes][req.slot])
         t_ret = time.perf_counter()
@@ -379,7 +383,9 @@ def serve(st: dict, seed: int, seconds: float, device: torch.device
         t1 = time.perf_counter()
         del y
         out.append({"root": req.root, "nbytes": req.nbytes, "t0": t0,
-                    "t_ret": t_ret, "t1": t1})
+                    "t_ret": t_ret, "t1": t1,
+                    "moved": round_step.moved_bytes - k1[0],
+                    "relay": round_step.relay_bytes - k1[1]})
         if t1 >= deadline and (req.index + 1) % block == 0:
             return out
     return out
@@ -410,6 +416,19 @@ def span_cost(count: int = 200_000) -> dict:
         out[mode] = (time.perf_counter() - t0) / count * 1e9
         spans.stop()
     return out
+
+
+def relay_pct(served: List[dict]) -> Dict[str, float]:
+    """By shape ``root/nbytes``: the share of K1's moved bytes that moves
+    reading or writing a relay row moved, %, from the counters' growth in
+    each request."""
+    moved: Dict[str, int] = collections.Counter()
+    relay: Dict[str, int] = collections.Counter()
+    for r in served:
+        shape = f"{r['root']}/{r['nbytes']}"
+        moved[shape] += r["moved"]
+        relay[shape] += r["relay"]
+    return {k: 100.0 * relay[k] / v for k, v in moved.items() if v}
 
 
 def unpack_hbm_pct(per_shape: Dict[str, Dict[str, float]], n: int
@@ -445,15 +464,15 @@ def measure(cell, seed: int, seconds: float, device: torch.device) -> dict:
         if mode == "traced" and device.type == "cuda":
             tracer = LaunchTracer(device)
             tracer.start()
-        moved0 = round_step.moved_bytes
         unpack0 = (runner.unpack_launches, runner.unpack_bytes)
         served = serve(st, seed + i, seconds, device)
-        moved = round_step.moved_bytes - moved0
+        moved = sum(r["moved"] for r in served)
         dev = tracer.stop() if tracer else None
         recorded = spans.stop() if mode != "off" else []
         row = dict(mode=mode, **summary(served),
                    unpack_launches=runner.unpack_launches - unpack0[0],
-                   unpack_bytes=runner.unpack_bytes - unpack0[1])
+                   unpack_bytes=runner.unpack_bytes - unpack0[1],
+                   k1_relay_pct=relay_pct(served))
         windows.append(row)
         log(f"[window {i}] {json.dumps(row)}")
         if dev is None:
@@ -470,6 +489,7 @@ def measure(cell, seed: int, seconds: float, device: torch.device) -> dict:
             window_start=w0, calls=dev["calls"], matched=dev["matched"],
             marker_tie_us=host["marker_tie_us"], anchors=host["anchors"],
             tie_drift_us=host["tie_drift_us"], moved_bytes=moved,
+            relay_bytes=sum(r["relay"] for r in served),
             planned_bytes=planned, least_bytes=least,
             k1_useful_pct=100.0 * least / moved if moved else None,
             k1_roofline_pct=100.0 * roofline.least_seconds(least) / k1
