@@ -8,7 +8,8 @@ Phases, each of which exits non-zero on failure:
 1. build every CUDA kernel of the main paths with ``nvcc`` (sm_90a), all
    sources at once: ``permute_rounds`` (K1, every sub-round of a broadcast
    in one persistent launch), ``permute_step`` (K1's one-sub-round kernel,
-   the yardstick), ``unpack_rows`` (UR, the runner's copy out),
+   the yardstick), ``unpack_rows`` (UR, the runner's copy out, and in the
+   same library ``fill_inplace``, the in-place layout's start),
    ``flash_attention`` (K2), ``ssd_scan`` (K3),
    ``event_core`` and ``event_core_scan`` (EC and its yardstick); print
    ptxas's registers and spills, and each K2, K3 and EC instance's shared
@@ -25,19 +26,28 @@ Phases, each of which exits non-zero on failure:
 3. the broadcast path: ``repro_torch.api.compile(mesh2d(16, 16)).executable(
    root=0, nbytes=16 MiB)`` on cuda -- 256 virtual devices, verified bit-exact
    on every device, in exactly one ``permute_rounds`` launch running d x
-   cycles sub-rounds, no ``permute_step`` launch and exactly one
-   ``unpack_rows`` launch a broadcast (in ``verify`` and in ``run``);
+   cycles sub-rounds, no ``permute_step`` launch, in the runner's in-place
+   layout (K1 writes into the stacked output) with one ``fill_inplace``
+   launch and one ``unpack_rows`` launch a broadcast for its tail (in
+   ``verify`` and in ``run``); then on that placement, on random
+   allocations, ``fill_inplace`` byte-equal to ``fill_ref``, K1 at the
+   placement's byte offsets to ``permute_rounds_ref`` over its first 64
+   sub-rounds, and ``unpack_tail`` to ``tail_ref``;
 4. small broadcasts (ring 8, hypercube 3; bbs and bine_tree; roots 0 and 3;
    bfloat16) on the card, each verified and held against the CPU run;
 5. K1's timing at the broadcast's shape: the old design per launch (a CUDA
    graph of the 2,156 ``permute_step`` launches, so host launch cost is
    left out; and their eager loop), the new one (``measure()``: one
    ``permute_rounds`` launch a broadcast, min of 3; its barrier-only time,
-   the same launch with every count 0; the wrapper's host time), the bound
-   (bytes moved over the card's memory rate), the plain versions and the
-   ``index_select``/``index_copy_`` yardstick; then UR held byte for byte
-   against ``unpack_ref`` on random buffers (padding bytes random too) at
-   the main path's layout and at two of the benchmark cells' 128e6 B
+   the same launch with every count 0; the wrapper's host time; these on
+   the in-place allocation), the bound (bytes moved over the card's memory
+   rate), the plain versions and the ``index_select``/``index_copy_``
+   yardstick; then the main path's ``unpack_tail`` and ``fill_inplace``
+   held and timed on its placement against ``tail_ref`` and ``fill_ref``,
+   a flat ``copy_`` and their bounds (the ``kernels`` line's UR and fill
+   entries); then UR's staged copy out held byte for byte against
+   ``unpack_ref`` on random buffers (padding bytes random too) at the
+   main path's layout staged and at two of the benchmark cells' 128e6 B
    layouts on 256 devices (mesh2d root 17 and dragonfly root 0, rows of
    used % 16 = 8 and 4), one launch each; at each, UR's time (CUDA events,
    min of 3), ``unpack_ref``'s, the strided ``copy_`` into a held output
@@ -257,6 +267,9 @@ CAL_RING_NBYTES = 4 << 20
 CAL_RING_SIZES = (8 << 10, 64 << 10, 256 << 10, 1 << 20)
 CAL_SIZES = (1 << 10, 8 << 10, 64 << 10, 256 << 10, 1 << 20)
 CAL_ITERS, CAL_REPS = 32, 5
+# K1 held on the main path's placement over its first sub-rounds (the plain
+# version is a Python loop over sub-rounds)
+MAIN_PREFIX = 64
 # UR at two of the benchmark cells' 128e6 B layouts on 256 devices
 # (runner.packet_layout on their float32 plans): (total, used, row_bytes,
 # nbytes); used % 16 is 8 and 4, so no output row starts on the 16-byte grid
@@ -348,13 +361,18 @@ def phase_build(FA, K):
     log(f"[build] {', '.join(names)} built in "
         f"{time.perf_counter() - t0:.3f} s")
     k1 = {}
-    for src in ("permute_rounds", "permute_step", "unpack_rows",
-                "event_core_scan"):
-        for line in nvcc.build_log(src).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build]   {src}: {line.strip()}")
-        (_, r, st, ld, _), = ptxas_kernels(nvcc.build_log(src), src)
-        k1[src] = dict(registers=r, spill_stores=st, spill_loads=ld)
+    # (the library, the kernel's name): a kernel in an anonymous namespace
+    # has its file's name in its mangled name
+    for src, kernel in (("permute_rounds", "permute_rounds"),
+                        ("permute_step", "permute_step"),
+                        ("unpack_rows", "unpack_rows_kernel"),
+                        ("unpack_rows", "fill_inplace_kernel"),
+                        ("event_core_scan", "event_core_scan")):
+        (_, r, st, ld, _), = ptxas_kernels(nvcc.build_log(src), kernel)
+        log(f"[build]   {src} {kernel}: {r} registers, spill stores {st} B, "
+            f"spill loads {ld} B")
+        k1[kernel.replace("_kernel", "")] = dict(
+            registers=r, spill_stores=st, spill_loads=ld)
     ec = {}
     for m, r, st, ld, static in ptxas_kernels(
             nvcc.build_log("event_core"), r"event_core_kernelILb([01])E"):
@@ -617,7 +635,7 @@ def phase_main(torch, rs, api, T):
     ex.moves()                       # compacted once per plan, set-up
     from repro_torch.device import runner
     rs.launches = rs.rounds_launches = rs.subrounds = 0
-    runner.unpack_launches = 0
+    runner.unpack_launches = runner.inplace_runs = runner.fill_launches = 0
     t0 = time.perf_counter()
     chk = ex.verify(x)
     torch.cuda.synchronize()
@@ -626,9 +644,16 @@ def phase_main(torch, rs, api, T):
         rs.launches
     unpacks = runner.unpack_launches
     out = ex.run(x)
-    if unpacks != 1 or runner.unpack_launches != 2:
+    lay = runner.packet_layout(x, s, ex.num_groups)
+    plc = runner.place(ex.moves(), lay, MAIN_NBYTES, ex.root,
+                       ex.placements())
+    if not plc.inplace or runner.inplace_runs != 2:
+        fail(f"main path took the in-place layout {runner.inplace_runs} "
+             f"times in 2 broadcasts (in place: {plc.inplace})")
+    tails = int(plc.tail > 0)          # the tail copy, if a row straddles
+    if unpacks != tails or runner.unpack_launches != 2 * tails:
         fail(f"main path launched unpack_rows {unpacks} times in verify and "
-             f"{runner.unpack_launches - unpacks} in run, expected 1 a "
+             f"{runner.unpack_launches - unpacks} in run, expected {tails} a "
              f"broadcast")
     if tuple(out.shape) != (256,) + tuple(x.shape) or \
             not torch.isfinite(out).all() or not torch.equal(out[255], x):
@@ -644,18 +669,73 @@ def phase_main(torch, rs, api, T):
              f"{subrounds} sub-rounds (and permute_step {steps} times), "
              f"expected 1 launch for d x cycles = {ex.num_subrounds} "
              f"sub-rounds and none")
-    lay = runner.packet_layout(x, s, ex.num_groups)
+    if runner.fill_launches != 2:
+        fail(f"main path launched fill_inplace {runner.fill_launches} times "
+             f"in 2 broadcasts, expected 1 a broadcast")
+    held = main_layout_vs_plain(torch, rs, runner, ex.moves(), plc, x,
+                                ex.root)
     secs = ex.measure(x, reps=3)
     log(f"[main] mesh2d 16x16, {MAIN_NBYTES} B float32 from root 0: "
         f"candidate {ex.candidate}, K={s.K}, m={ex.num_groups}, d={s.d}, "
         f"cycles={s.num_cycles(ex.num_groups)}, relay rows={s.num_relay}, "
         f"{launches} permute_rounds launch for {subrounds} sub-rounds, "
-        f"{int(ex.moves().counts.sum())} row moves, {unpacks} unpack_rows "
-        f"launch a broadcast, packet buffer {lay.buffer_bytes} B "
-        f"({lay.rows} rows x {lay.row_bytes} B x {lay.n} devices)")
+        f"{int(ex.moves().counts.sum())} row moves, in place: "
+        f"{plc.full} rows a device in the output, {plc.scratch} in "
+        f"scratch, a tail of {plc.tail} B; {unpacks} unpack_rows launch a "
+        f"broadcast; allocation {plc.alloc_bytes} B (staged buffer "
+        f"{lay.buffer_bytes} B: {lay.rows} rows x {lay.row_bytes} B x "
+        f"{lay.n} devices)")
     log(f"[main] plan+tables build {t_build:.3f} s; verify (run + compare) "
         f"{t_verify:.3f} s; ok on all {len(chk.required)} devices")
-    return ex, x, lay, launches, subrounds, steps, unpacks, secs
+    log(f"[main] on the main path's placement, random allocations of "
+        f"{plc.alloc_bytes} B: fill_inplace byte-equal to fill_ref, K1 on "
+        f"its byte offsets to permute_rounds_ref over sub-rounds "
+        f"[0, {held['subrounds']}), unpack_tail to tail_ref")
+    return ex, x, lay, plc, launches, subrounds, steps, unpacks, secs
+
+
+def main_layout_vs_plain(torch, rs, runner, moves, plc, x, root):
+    """The main path's three in-place launches, each against its plain
+    version on the main path's placement, byte for byte, on random
+    allocations (so no byte is right by chance): ``fill_inplace`` against
+    ``fill_ref``, K1 at the placement's byte offsets (``plc.at``) against
+    ``permute_rounds_ref`` over the first ``MAIN_PREFIX`` sub-rounds, and
+    ``unpack_tail`` against ``tail_ref``."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(29)
+
+    def rand():
+        return torch.randint(0, 256, (plc.alloc_bytes,), dtype=torch.uint8,
+                             device=dev, generator=g)
+
+    def held(what, got, want):
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"[main] {what}: {int((got != want).sum())} bytes differ "
+                 f"from the plain version")
+
+    alloc = rand()
+    want = alloc.clone()
+    runner.fill_ref(want, x.reshape(-1).view(torch.uint8), plc, root)
+    runner.fill_inplace(alloc, x, plc, root)
+    held("fill_inplace", alloc, want)
+    s1 = min(MAIN_PREFIX, moves.num_subrounds)
+    rs.permute_rounds_ref(want, moves, 0, s1, at=plc.at)
+    rs.permute_rounds(alloc, moves, 0, s1, at=plc.at)
+    held(f"K1 on the placement's offsets, sub-rounds [0, {s1})", alloc, want)
+    del alloc, want
+    alloc = rand()
+    want = alloc.clone()
+    runner.tail_ref(want, plc)
+    before = runner.unpack_launches
+    runner.unpack_tail(alloc, plc)
+    if runner.unpack_launches != before + int(plc.tail > 0):
+        fail(f"[main] unpack_tail launched unpack_rows "
+             f"{runner.unpack_launches - before} times")
+    held("unpack_tail", alloc, want)
+    del alloc, want
+    torch.cuda.empty_cache()
+    return dict(subrounds=s1)
 
 
 def phase_small(torch, api, T, DeviceConfig, SimConfig):
@@ -681,14 +761,17 @@ def phase_small(torch, api, T, DeviceConfig, SimConfig):
                     f"sub-rounds in {ex.num_launches} launch)")
 
 
-def phase_timing(np, torch, rs, runner, ex, x, lay, rate, secs):
+def phase_timing(np, torch, rs, runner, ex, x, lay, plc, rate, secs):
     """K1 over the main path's whole cycle loop, both designs on one card:
     the old one launch per sub-round (``permute_step`` in a CUDA graph and
     in an eager loop, per launch), the new one launch per broadcast
     (``measure()``'s ``secs``; the same launch over the same sub-rounds with
     every count 0, the barriers alone; the wrapper's host time), the bytes
     bound, the plain versions and the ``index_select``/``index_copy_``
-    yardstick."""
+    yardstick. The new design's readings are taken where the main path
+    runs it, on the in-place allocation at the placement's byte offsets
+    (``plc``); the old design's and the yardstick's, which index the
+    ``[n, rows, row_bytes]`` buffer, on the staged buffer."""
     dev = torch.device("cuda")
     tabs = ex.tables()
     moves = ex.moves()
@@ -720,24 +803,30 @@ def phase_timing(np, torch, rs, runner, ex, x, lay, rate, secs):
         seen_r |= r
         seen_w |= w
 
+    alloc = runner.pack_inplace(x, plc, ex.root, dev)
+    idle = moves.idle()
+    idle_at = dataclasses.replace(plc.at, pairs=plc.at.pairs[:0])
+    barrier_ms = min(cuda_ms(lambda: rs.permute_rounds(alloc, idle,
+                                                       at=idle_at))
+                     for _ in range(3))
+    reps = 10
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        rs.permute_rounds(alloc, moves, at=plc.at)
+    host_ms = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    rounds_plain_ms = cuda_ms(lambda: rs.permute_rounds_ref(alloc, moves,
+                                                            at=plc.at))
+    del alloc
+    torch.cuda.empty_cache()
+
     buf = runner.pack(x, lay, ex.root, dev)
     step_graph_ms = graph_ms(torch, lambda: [rs.permute_step(buf, t)
                                              for t in flat_tabs], 1)
     step_eager_ms = min(cuda_ms(lambda: [rs.permute_step(buf, t)
                                          for t in flat_tabs])
                         for _ in range(2))
-
-    idle = moves.idle()
-    barrier_ms = min(cuda_ms(lambda: rs.permute_rounds(buf, idle))
-                     for _ in range(3))
-    reps = 10
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        rs.permute_rounds(buf, moves)
-    host_ms = (time.perf_counter() - t0) * 1e3 / reps
-    torch.cuda.synchronize()
-    rounds_plain_ms = cuda_ms(lambda: rs.permute_rounds_ref(buf, moves))
     step_plain_ms = cuda_ms(lambda: [rs.permute_step_ref(buf, t)
                                      for t in flat_tabs])
 
@@ -764,9 +853,10 @@ def phase_timing(np, torch, rs, runner, ex, x, lay, rate, secs):
         f"({nbytes} B at {rate / 1e12:.2f} TB/s); barrier-only (every count "
         f"0) {barrier_ms!r} ms, {barrier_ms / nl * 1e3!r} us a sub-round; "
         f"the wrapper's host time {host_ms!r} ms a call; plain "
-        f"(permute_rounds_ref) {rounds_plain_ms!r} ms; {runs} runs of "
-        f"conflict-free consecutive sub-rounds")
-    log(f"[timing] permute_step (the old design, {nl} launches): "
+        f"(permute_rounds_ref) {rounds_plain_ms!r} ms; all on the in-place "
+        f"allocation; {runs} runs of conflict-free consecutive sub-rounds")
+    log(f"[timing] permute_step (the old design, {nl} launches, on the "
+        f"staged buffer): "
         f"{step_graph_ms!r} ms in a CUDA graph ({step_graph_ms / nl * 1e3!r} "
         f"us a launch), {step_eager_ms!r} ms in an eager loop "
         f"({step_eager_ms / nl * 1e3!r} us a launch); plain "
@@ -784,17 +874,84 @@ def phase_timing(np, torch, rs, runner, ex, x, lay, rate, secs):
                 conflict_free_runs=runs)
 
 
+MAIN_TAIL = "mesh2d 16x16 main path tail"
+MAIN_FILL = "mesh2d 16x16 main path fill"
+
+
+def best_ms(fn, reps=3):
+    """The least of ``reps`` CUDA-event timings of one call of ``fn``."""
+    return min(cuda_ms(fn) for _ in range(reps))
+
+
+def phase_inplace_copies(torch, runner, plc, root, rate):
+    """The main path's two in-place launches of ``csrc/unpack_rows.cu`` on
+    its placement ``plc``, on random allocations, byte-equal to their plain
+    versions and timed (CUDA events, min of 3) against them, a flat
+    ``copy_`` of as many bytes and the bound, their bytes at the card's
+    memory rate: ``unpack_tail`` (each device's tail at a pitch; 2 x n x
+    tail bytes; the plain version ``tail_ref`` is one strided ``copy_``,
+    the library yardstick too) and ``fill_inplace`` (the root's payload and
+    tail, scratch zeroed; nbytes read, nbytes + n x scratch written; the
+    plain ``fill_ref`` is a ``zero_`` and two ``copy_``, the library
+    yardstick too). Returns the readings by name."""
+    dev = torch.device("cuda")
+    lay, nb = plc.lay, plc.nbytes
+    g = torch.Generator(device=dev).manual_seed(31)
+    alloc = torch.randint(0, 256, (plc.alloc_bytes,), dtype=torch.uint8,
+                          device=dev, generator=g)
+    xb = torch.randint(0, 256, (nb,), dtype=torch.uint8, device=dev,
+                       generator=g)
+    res = {}
+    fills = (("fill", runner.fill_inplace, runner.fill_ref,
+              2 * nb + lay.n * plc.scratch * lay.row_bytes),
+             ("tail", runner.unpack_tail, runner.tail_ref,
+              2 * lay.n * plc.tail))
+    for what, kernel, plain, moved in fills:
+        args = (xb, plc, root) if what == "fill" else (plc,)
+        want = alloc.clone()
+        plain(want, *args)
+        kernel(alloc, *args)
+        torch.cuda.synchronize()
+        bad = int((alloc != want).sum())
+        if bad:
+            fail(f"[unpack] main path {what}: {bad} bytes differ from its "
+                 f"plain version")
+        del want
+        src, dst = alloc[:moved // 2], alloc[moved // 2:moved // 2 * 2]
+        flat_ms = best_ms(lambda: dst.copy_(src))
+        ms = best_ms(lambda: kernel(alloc, *args))
+        plain_ms = best_ms(lambda: plain(alloc, *args))
+        bound_ms = moved / rate * 1e3
+        name = MAIN_FILL if what == "fill" else MAIN_TAIL
+        res[name] = dict(n=lay.n, nbytes=nb, tail=plc.tail,
+                         scratch_rows=plc.scratch, row_bytes=lay.row_bytes,
+                         bytes=moved, bad_bytes=bad, ms=ms,
+                         plain_ms=plain_ms, library_ms=plain_ms,
+                         flat_copy_ms=flat_ms, bound_ms=bound_ms,
+                         share_of_bound=bound_ms / ms)
+        log(f"[unpack] {name}: {lay.n} devices, {nb} B a device, a tail of "
+            f"{plc.tail} B, {plc.scratch} scratch rows of {lay.row_bytes} "
+            f"B: byte-equal to its plain version in one launch; "
+            f"{kernel.__name__} {ms!r} ms, {bound_ms / ms!r} of its "
+            f"{bound_ms!r} ms bound ({moved} B at {rate / 1e12:.2f} TB/s); "
+            f"{plain.__name__} {plain_ms!r} ms; a flat copy_ moving as many "
+            f"bytes {flat_ms!r} ms")
+    del alloc, xb, src, dst
+    torch.cuda.empty_cache()
+    return res
+
+
 def phase_unpack(torch, runner, main_lay, rate):
-    """UR, the runner's copy out (``unpack_rows``), against ``unpack_ref``
+    """UR's staged copy out (``unpack_rows``) against ``unpack_ref``
     on the card, byte for byte, on random buffers (padding bytes random
-    too): at the main path's layout and at ``UNPACK_SHAPES``, one launch
-    each. Each shape is timed (CUDA events, min of 3) beside
+    too): at the main path's layout staged and at ``UNPACK_SHAPES``, one
+    launch each. Each shape is timed (CUDA events, min of 3) beside
     ``unpack_ref``, the strided ``copy_`` into a held output (the library
     yardstick: ``unpack_ref``'s copies without its allocation), a flat
     ``copy_`` of as many bytes (the ceiling) and the bound, 2 x n x nbytes
     bytes at the card's memory rate. Returns the readings by shape."""
     dev = torch.device("cuda")
-    shapes = {"mesh2d 16x16 main path": (main_lay, MAIN_NBYTES)}
+    shapes = {"mesh2d 16x16 main path staged": (main_lay, MAIN_NBYTES)}
     for name, (total, used, row_bytes, nbytes) in UNPACK_SHAPES:
         shapes[name] = (runner.PacketLayout(
             n=256, total=total, relay=0, plen=used // 4, used=used,
@@ -3300,14 +3457,13 @@ def main():
     max_err = phase_kernel_vs_plain(np, torch, rs)
     rounds_err = phase_rounds_vs_plain(np, torch, rs)
     K.launches = FA.launches = 0
-    ex, x, lay, launches, subrounds, steps_on_main, unpacks, secs = \
-        phase_main(
-        torch, rs, api, T)
+    ex, x, lay, plc, launches, subrounds, steps_on_main, unpacks, secs = \
+        phase_main(torch, rs, api, T)
     if K.launches or FA.launches:
         fail(f"the broadcast path launched ssd_scan {K.launches} and "
              f"flash_attention {FA.launches} times")
     phase_small(torch, api, T, DeviceConfig, SimConfig)
-    tm = phase_timing(np, torch, rs, runner, ex, x, lay, rate, secs)
+    tm = phase_timing(np, torch, rs, runner, ex, x, lay, plc, rate, secs)
     moved = tm["bytes"]
     log(f"[main] measure(): {secs * 1e3!r} ms per broadcast (one "
         f"permute_rounds launch, min of 3), {moved} B moved by the kernel = "
@@ -3319,14 +3475,21 @@ def main():
         f"bound {tm['bound_ms']!r} ms) against {tm['step_graph_ms']!r} ms "
         f"for {subrounds} permute_step launches in a CUDA graph; "
         f"permute_rounds {regs['permute_rounds']}")
+    root = ex.root
     del ex, x
     torch.cuda.empty_cache()
-    ur = phase_unpack(torch, runner, lay, rate)
-    ur_head = ur[UNPACK_SHAPES[0][0]]
-    log(f"[summary] {name}: UR at {UNPACK_SHAPES[0][0]} 128e6 B, 256 "
-        f"devices: {ur_head['ms']!r} ms, {ur_head['share_of_bound']!r} of "
-        f"its {ur_head['bound_ms']!r} ms bound; unpack_ref "
-        f"{ur_head['plain_ms']!r} ms; unpack_rows "
+    ur = phase_inplace_copies(torch, runner, plc, root, rate)
+    ur.update(phase_unpack(torch, runner, lay, rate))
+    ur_head, fill = ur[MAIN_TAIL], ur[MAIN_FILL]
+    staged = ur[UNPACK_SHAPES[0][0]]
+    log(f"[summary] {name}: UR on the main path (each device's "
+        f"{ur_head['tail']} B tail): {ur_head['ms']!r} ms, "
+        f"{ur_head['share_of_bound']!r} of its {ur_head['bound_ms']!r} ms "
+        f"bound; its fill_inplace {fill['ms']!r} ms, "
+        f"{fill['share_of_bound']!r} of {fill['bound_ms']!r} ms; staged at "
+        f"{UNPACK_SHAPES[0][0]} 128e6 B, 256 devices: {staged['ms']!r} ms, "
+        f"{staged['share_of_bound']!r} of its {staged['bound_ms']!r} ms "
+        f"bound; unpack_ref {staged['plain_ms']!r} ms; unpack_rows "
         f"{regs['unpack_rows']}")
     K.launches = FA.launches = 0
     cal = phase_calibrate(torch, rs, api, T)
@@ -3500,9 +3663,10 @@ def main():
         "library_ms": tm["step_library_ms"],
         "eager_ms": tm["step_eager_ms"], "timed_launches": tm["subrounds"],
     }, {
-        # the runner's copy out; ms, plain_ms, library_ms, flat_copy_ms and
-        # bound_ms at the first of UNPACK_SHAPES, "shapes" every shape held
-        # and timed; launches: on the main path, a broadcast
+        # the runner's copy out; launches: on the main path, a broadcast
+        # (the in-place tail), whose shape ms, plain_ms, library_ms,
+        # flat_copy_ms and bound_ms read; "shapes" every shape held and
+        # timed, the staged copy out's among them
         "name": "unpack_rows", "route": "cuda",
         "source": "src/repro_torch/csrc/unpack_rows.cu",
         "replaces": None,
@@ -3511,8 +3675,22 @@ def main():
         "ms": ur_head["ms"], "plain_ms": ur_head["plain_ms"],
         "bound_ms": ur_head["bound_ms"], "bound_by": "bytes",
         "library_ms": ur_head["library_ms"],
-        "flat_copy_ms": ur_head["flat_copy_ms"], "shape": UNPACK_SHAPES[0][0],
+        "flat_copy_ms": ur_head["flat_copy_ms"], "shape": MAIN_TAIL,
         "shapes": ur, **regs["unpack_rows"],
+    }, {
+        # the in-place layout's start, in the same library; launches: on
+        # the main path, one a broadcast (gated in [main])
+        "name": "fill_inplace", "route": "cuda",
+        "source": "src/repro_torch/csrc/unpack_rows.cu",
+        "replaces": None,
+        "reference_op": "src/repro/device/runner.py (the packet buffers' "
+                        "zero fill and the root's payload)",
+        "launches": 1, "bad_bytes": 0,
+        "ms": fill["ms"], "plain_ms": fill["plain_ms"],
+        "bound_ms": fill["bound_ms"], "bound_by": "bytes",
+        "library_ms": fill["library_ms"],
+        "flat_copy_ms": fill["flat_copy_ms"], "shape": MAIN_FILL,
+        **regs["fill_inplace"],
     }, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",

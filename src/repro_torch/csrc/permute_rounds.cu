@@ -42,6 +42,10 @@
 //    once per plan) keeps for each sub-round the (dst_row, src_row) pairs of
 //    its receivers with r_ok, as global row indexes v * rows + r_ix[v]
 //    (src_row -1: a zero write), and the offsets of each sub-round's pairs.
+//    The kernel reads each pair as the two rows' byte offsets into one
+//    allocation (Moves.offsets, once per plan and placement): row * row_bytes
+//    in the [n, rows, row_bytes] buffer, or wherever a placement puts the
+//    row (the runner's in-place layout: straight into the stacked output).
 //    The kernel never visits an idle receiver.
 // 3. Row moves spread over the whole grid. A sub-round's count x chunks
 //    16-byte chunks are split evenly over every thread of the grid,
@@ -91,13 +95,12 @@ __device__ __forceinline__ void grid_sync(unsigned* bar) {
   __syncthreads();
 }
 
-// moves: (dst_row, src_row) pairs, sub-round s's at [offs[s], offs[s + 1]);
-// chunks: 16-byte chunks of a row.
+// moves: (dst, src) byte offsets of rows, sub-round s's at
+// [offs[s], offs[s + 1]); chunks: 16-byte chunks of a row.
 __global__ void __launch_bounds__(kThreads)
 permute_rounds_kernel(uint8_t* buf, const longlong2* __restrict__ moves,
                       const long long* __restrict__ offs, int s0, int s1,
                       int chunks, unsigned* bar) {
-  const long long row_bytes = 16ll * chunks;
   const int nthreads = gridDim.x * kThreads;
   const int tid = blockIdx.x * kThreads + threadIdx.x;
   // a sub-round's first pair and chunk count, and this thread's first
@@ -130,10 +133,9 @@ permute_rounds_kernel(uint8_t* buf, const longlong2* __restrict__ moves,
         if (i < n) {
           const int m = i / chunks, c = i - m * chunks;
           const longlong2 mv = base == tid ? ahead[u] : moves[f + m];
-          dst[u] = reinterpret_cast<uint4*>(buf + mv.x * row_bytes) + c;
+          dst[u] = reinterpret_cast<uint4*>(buf + mv.x) + c;
           if (mv.y >= 0)
-            val[u] = __ldcg(reinterpret_cast<const uint4*>(
-                                buf + mv.y * row_bytes) + c);
+            val[u] = __ldcg(reinterpret_cast<const uint4*>(buf + mv.y) + c);
         }
       }
 #pragma unroll
@@ -176,9 +178,10 @@ extern "C" int permute_rounds_blocks() { return grid_blocks(); }
 extern "C" const int permute_rounds_threads = kThreads;
 extern "C" const int permute_rounds_unroll = kUnroll;
 
-// buf: [n, rows, row_bytes] uint8, 16-byte aligned, row_bytes = 16 chunks;
-// moves: int64 [M, 2] (dst_row, src_row), row indexes into the [n * rows]
-// rows of buf, src_row -1 for a zero write; offs: int64 [S + 1], sub-round
+// buf: uint8, 16-byte aligned, holding every row the moves name; a row is
+// 16 x chunks bytes; moves: int64 [M, 2] (dst, src), the rows' byte offsets
+// into buf, multiples of 16, rows that do not overlap, src -1 for a zero
+// write; offs: int64 [S + 1], sub-round
 // s's moves at [offs[s], offs[s + 1]); both on the same device. Runs
 // sub-rounds [s0, s1) (s0 < s1) in one cooperative launch. Every count x
 // chunks + permute_rounds_unroll x the grid's threads fits an int. bar: one

@@ -1,6 +1,7 @@
-// The runner's unpack on n virtual devices in one launch: every device's
-// copy of the payload out of the packet buffers, stacked, with the rows'
-// padding and the relay rows dropped.
+// The runner's copies on n virtual devices, each in one launch. The unpack:
+// every device's copy of the payload out of the packet buffers, stacked,
+// with the rows' padding and the relay rows dropped; and the in-place
+// layout's pack (fill_inplace, below).
 //
 // Replaces no TPU kernel. The reference hands the shard_map's output to an
 // XLA slice and reshape (src/repro/device/runner.py:136,
@@ -49,6 +50,22 @@
 //    the (device, row, column) forward from the segment, and each stores
 //    its byte; past the tensor's end nothing is written.
 //
+// The runner's in-place layout (device/runner.py, unpack_tail) calls it
+// for the tail alone: device v's one straddling row, out of the scratch
+// rows after the output, into bytes [off, pitch) of device v's output, the
+// output pitch bytes a device. Then every segment starts and ends on the
+// 16-byte grid and step 3 never runs.
+//
+// The same library holds the in-place layout's pack (fill_inplace): one
+// launch that starts a request's allocation as K1 needs it, in place of a
+// zero fill and two copies, so that K1's launch follows the request's
+// start by one launch of host work. In 16-byte chunks, grid-stride, the
+// loads of kUnroll chunks before their stores: the root's payload into its
+// output, and the scratch region after the n outputs zeroed but for the
+// first tail bytes of the root's scratch, which take the payload's last
+// tail bytes (its straddling row). Bound: bytes, nbytes read and nbytes +
+// n x scratch written.
+//
 // Raw bytes: every dtype and every NaN payload comes through bit-exact.
 // Byte offsets are 64-bit (the output is 32.8 GB at 128e6 B). Launches on
 // the caller's stream and allocates nothing.
@@ -73,6 +90,8 @@ struct Shape {
   long long rem;                 // nbytes % used: the last row's bytes
   long long segs;                // full + (rem > 0): segments a device
   long long nbytes;              // one device's output
+  long long pitch;               // bytes from one device's output to the next
+  long long off;                 // where a device's output starts in its pitch
   long long total;               // n x nbytes
 };
 
@@ -150,7 +169,7 @@ unpack_rows_kernel(const uint8_t* __restrict__ buf, uint8_t* out, Shape s,
   for (long long item = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
        item < items; item += warps) {
     const long long v = item / s.segs, r = item - v * s.segs;
-    const long long start = v * s.nbytes + r * s.used;
+    const long long start = v * s.pitch + s.off + r * s.used;
     const long long len = seg_len(s, r);
     const long long end = start + len;
     const uint8_t* row = buf + v * s.dev_bytes + r * s.row_bytes;
@@ -184,11 +203,56 @@ unpack_rows_kernel(const uint8_t* __restrict__ buf, uint8_t* out, Shape s,
   }
 }
 
-// Blocks of the grid on the current device: as many as the occupancy
-// calculator fits, cached per device; negative: a CUDA error, 0: the
-// kernel does not fit an SM.
-int grid_blocks() {
-  static std::atomic<int> cached[64];
+struct Fill {
+  long long payload;             // chunks of the payload: nbytes / 16
+  long long root_out;            // the root's output, in chunks
+  long long scratch;             // the scratch region's start, in chunks
+  long long tail_at;             // the root's straddling row in scratch
+  long long tail;                // its chunks that take the payload's tail
+  long long tail_src;            // the payload's tail, in chunks
+  long long chunks;              // payload + n x scratch chunks a device
+};
+
+// chunk i of the fill: the payload's chunk i into the root's output, or
+// scratch chunk i - payload, zero but for the root's straddling row
+__device__ __forceinline__ void fill_chunk(const uint4* __restrict__ x,
+                                           const Fill& f, long long i,
+                                           long long* dst, uint4* val) {
+  long long src = -1;
+  if (i < f.payload) {
+    *dst = f.root_out + i;
+    src = i;
+  } else {
+    const long long j = i - f.payload, r = j - f.tail_at;
+    *dst = f.scratch + j;
+    if (r >= 0 && r < f.tail) src = f.tail_src + r;
+  }
+  *val = src >= 0 ? __ldg(x + src) : make_uint4(0, 0, 0, 0);
+}
+
+__global__ void __launch_bounds__(kThreads)
+fill_inplace_kernel(const uint4* __restrict__ x, uint4* alloc, Fill f) {
+  const long long threads = (long long)gridDim.x * kThreads;
+  for (long long base = (long long)blockIdx.x * kThreads + threadIdx.x;
+       base < f.chunks; base += threads * kUnroll) {
+    long long dst[kUnroll];
+    uint4 val[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long i = base + threads * u;
+      if (i < f.chunks) fill_chunk(x, f, i, dst + u, val + u);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      if (base + threads * u < f.chunks) alloc[dst[u]] = val[u];
+  }
+}
+
+// Blocks of kernel's grid on the current device: as many as the occupancy
+// calculator fits, cached per device in cached; negative: a CUDA error,
+// 0: the kernel does not fit an SM.
+template <typename Kernel>
+int grid_blocks(Kernel kernel, std::atomic<int>* cached) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return -(int)err;
@@ -197,24 +261,29 @@ int grid_blocks() {
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                     dev)) != cudaSuccess ||
       (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, unpack_rows_kernel, kThreads, 0)) != cudaSuccess)
+           &per_sm, kernel, kThreads, 0)) != cudaSuccess)
     return -(int)err;
   const int blocks = per_sm * sms;
   if (dev < 64 && blocks > 0) cached[dev].store(blocks);
   return blocks;
 }
 
+std::atomic<int> unpack_blocks[64], fill_blocks[64];
+
 }  // namespace
 
 // buf: [n, rows, row_bytes] uint8, 16-byte aligned, row_bytes a multiple of
-// 16; out: [n, nbytes] uint8, 16-byte aligned, on the same device;
-// 0 < used <= row_bytes and nbytes <= rows * used. Writes every byte of out
-// in one launch on stream. Returns cudaGetLastError() after the launch (0
-// on success).
+// 16; out: uint8, 16-byte aligned, on the same device, device v's nbytes at
+// out + v * pitch + off; 0 < used <= row_bytes and nbytes <= rows * used.
+// Either the output is [n, nbytes] (pitch = nbytes, off = 0) or used,
+// nbytes, pitch and off are multiples of 16. Writes those bytes of out and
+// no other in one launch on stream. Returns cudaGetLastError() after the
+// launch (0 on success).
 extern "C" int unpack_rows(const void* buf, void* out, int n, long long rows,
                            long long row_bytes, long long used,
-                           long long nbytes, void* stream) {
-  const int blocks = grid_blocks();
+                           long long nbytes, long long pitch, long long off,
+                           void* stream) {
+  const int blocks = grid_blocks(unpack_rows_kernel, unpack_blocks);
   if (blocks < 0) return -blocks;
   if (blocks == 0) return (int)cudaErrorInvalidConfiguration;
   Shape s;
@@ -225,6 +294,8 @@ extern "C" int unpack_rows(const void* buf, void* out, int n, long long rows,
   s.rem = nbytes % used;
   s.segs = s.full + (s.rem > 0);
   s.nbytes = nbytes;
+  s.pitch = pitch;
+  s.off = off;
   s.total = (long long)n * nbytes;
   const long long items = (long long)n * s.segs;
   const long long grid =
@@ -232,5 +303,35 @@ extern "C" int unpack_rows(const void* buf, void* out, int n, long long rows,
   unpack_rows_kernel<<<(unsigned)grid, kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(buf), static_cast<uint8_t*>(out), s, items);
+  return (int)cudaGetLastError();
+}
+
+// x: the payload, nbytes uint8 bytes, 16-byte aligned; alloc: the in-place
+// allocation, 16-byte aligned, on the same device: n outputs of nbytes,
+// then n scratch regions of scratch bytes; tail < scratch bytes of the
+// root's straddling row hold the payload's last tail bytes. nbytes, scratch
+// and tail are multiples of 16. Writes the root's output and every scratch
+// byte, and no other, in one launch on stream. Returns cudaGetLastError()
+// after the launch (0 on success).
+extern "C" int fill_inplace(const void* x, void* alloc, int n, int root,
+                            long long nbytes, long long scratch,
+                            long long tail, void* stream) {
+  const int blocks = grid_blocks(fill_inplace_kernel, fill_blocks);
+  if (blocks < 0) return -blocks;
+  if (blocks == 0) return (int)cudaErrorInvalidConfiguration;
+  Fill f;
+  f.payload = nbytes / 16;
+  f.root_out = (long long)root * f.payload;
+  f.scratch = (long long)n * f.payload;
+  f.tail_at = (long long)root * (scratch / 16);
+  f.tail = tail / 16;
+  f.tail_src = (nbytes - tail) / 16;
+  f.chunks = f.payload + (long long)n * (scratch / 16);
+  const long long need = (f.chunks + kThreads - 1) / kThreads;
+  const long long grid = std::max<long long>(
+      1, std::min<long long>(blocks, need));
+  fill_inplace_kernel<<<(unsigned)grid, kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(x), static_cast<uint4*>(alloc), f);
   return (int)cudaGetLastError();
 }

@@ -116,11 +116,22 @@ class ExecutablePlan:
 
     def moves(self) -> "runner.Moves":
         """The run's compacted moves (``runner.build_moves``) on the device,
-        built on first use and reused by every run."""
+        built on first use and reused by every run. On a GPU the placement
+        of the plan's own payload (``nbytes`` of ``device.dtype``) is made
+        with them (``placements``): its row offsets are allocated in
+        lowering, before any request's output, so they split no block the
+        requests reuse."""
         mv = self.__dict__.get("_moves")
         if mv is None:
             mv = self._moves = runner.build_moves(
                 self.schedule, self.num_groups, self.torch_device)
+            if mv.device.type == "cuda":
+                x = torch.empty(self._payload_numel(), device="meta",
+                                dtype=getattr(torch, self.device.dtype))
+                runner.place(mv, runner.packet_layout(
+                    x, self.schedule, self.num_groups),
+                    x.numel() * x.element_size(), self.root,
+                    self.placements())
         return mv
 
     def _program(self) -> dict:
@@ -129,6 +140,13 @@ class ExecutablePlan:
         if self.torch_device.type == "cuda":
             return dict(moves=self.moves())
         return dict(tabs=self.tables())
+
+    def placements(self) -> dict:
+        """``runner.place``'s cache for this plan: each payload layout's
+        placement of K1's rows (in place or staged), made once (by
+        ``moves`` for the plan's own payload, else by the layout's first
+        run) and reused by every later run."""
+        return self.__dict__.setdefault("_placements", {})
 
     def run(self, x: torch.Tensor, group=None) -> torch.Tensor:
         """Execute the broadcast; returns the per-device copies stacked on a
@@ -150,7 +168,8 @@ class ExecutablePlan:
             return runner.bbs_broadcast(x, self.schedule, self.num_groups,
                                         self.torch_device,
                                         tables=prog.get("tabs"),
-                                        moves=prog.get("moves"))
+                                        moves=prog.get("moves"),
+                                        placements=self.placements())
 
     def verify(self, x: torch.Tensor, group=None) -> DeviceDelivery:
         """Run and compare every device's bytes with the payload's, on the
@@ -172,22 +191,28 @@ class ExecutablePlan:
         return DeviceDelivery(ok=not missing, required=required,
                               missing=missing)
 
+    def _payload_numel(self) -> int:
+        """Elements of ``device.dtype`` in the plan's ``nbytes``."""
+        esz = torch.empty((), dtype=getattr(torch, self.device.dtype)) \
+            .element_size()
+        return max(1, int(self.nbytes) // esz)
+
     def default_payload(self, seed: int = 0) -> torch.Tensor:
         """``nbytes`` of random bytes from ``seed``, as ``device.dtype``."""
         dtype = getattr(torch, self.device.dtype)
         esz = torch.empty((), dtype=dtype).element_size()
-        n = max(1, int(self.nbytes) // esz)
         g = torch.Generator(device="cpu").manual_seed(seed)
-        return torch.randint(0, 256, (n * esz,), dtype=torch.uint8,
-                             generator=g).view(dtype)
+        return torch.randint(0, 256, (self._payload_numel() * esz,),
+                             dtype=torch.uint8, generator=g).view(dtype)
 
     def measure(self, x: Optional[torch.Tensor] = None, reps: int = 5,
                 group=None) -> float:
         """Seconds per broadcast: the minimum over ``reps`` timed runs of the
         cycle loop (on a GPU one ``permute_rounds`` launch), after one
         untimed warm-up run. Each run starts from freshly packed buffers,
-        made outside the timed window. Timed with ``torch.cuda.Event`` on a
-        GPU and ``perf_counter`` on the CPU.
+        made outside the timed window, in the layout ``run`` takes (on a
+        GPU in place where ``runner.place`` allows it). Timed with
+        ``torch.cuda.Event`` on a GPU and ``perf_counter`` on the CPU.
 
         With a ``torch.distributed`` group, every rank calls it and the
         broadcast runs across the ranks: this rank's program is prepared
@@ -206,9 +231,19 @@ class ExecutablePlan:
         x = (self.default_payload() if x is None else x).to(dev)
         lay = runner.packet_layout(x, self.schedule, self.num_groups)
         prog = self._program()
+        plc = None
+        if "moves" in prog:
+            plc = runner.place(prog["moves"], lay,
+                               x.numel() * x.element_size(),
+                               self.root, self.placements())
+            if plc.inplace:
+                prog["at"] = plc.at
         best = float("inf")
         for i in range(reps + 1):
-            buf = runner.pack(x, lay, self.root, dev)
+            if plc is not None and plc.inplace:
+                buf = runner.pack_inplace(x, plc, self.root, dev)
+            else:
+                buf = runner.pack(x, lay, self.root, dev)
             if dev.type == "cuda":
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)

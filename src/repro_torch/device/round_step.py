@@ -28,7 +28,11 @@ kernel ``csrc/permute_step.cu`` on a CUDA tensor and runs the plain version
 between sub-rounds), from the compacted moves of ``compact_moves``: for
 each sub-round only the ``(dst_row, src_row)`` pairs of its writing
 receivers, as row indexes into the ``[n * rows, row_bytes]`` view of the
-buffer. Its plain version ``permute_rounds_ref`` applies them sub-round by
+buffer. The kernel reads them as byte offsets (``RowOffsets``, from
+``Moves.offsets``): by default those of that buffer, ``row *
+row_bytes``, or those of any placement of the rows in one flat allocation
+(the runner's in-place layout puts most of them straight into the stacked
+output). Its plain version ``permute_rounds_ref`` applies them sub-round by
 sub-round. ``rounds_launches`` counts its launches and ``subrounds`` the
 sub-rounds they ran; ``moved_bytes`` counts the HBM bytes of rows that
 every ``permute_rounds`` call, on the card or the plain path, reads and
@@ -171,6 +175,8 @@ class Moves:
     zeros_cum: np.ndarray
     relay_cum: np.ndarray
     relay_zeros_cum: np.ndarray
+    _staged: Dict[int, "RowOffsets"] = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False)
 
     @property
     def num_subrounds(self) -> int:
@@ -183,6 +189,39 @@ class Moves:
     def to(self, device) -> "Moves":
         return dataclasses.replace(self, pairs=self.pairs.to(device),
                                    offs=self.offs.to(device))
+
+    def offsets(self, row_bytes: int,
+                row_at: Optional[np.ndarray] = None) -> "RowOffsets":
+        """The moves' rows as byte offsets into one flat allocation, on the
+        moves' device: row ``i`` of the ``[n * rows]`` rows at
+        ``row_at[i]`` (int64, each a multiple of 16), or by default at
+        ``i * row_bytes``, the ``[n, rows, row_bytes]`` buffer's rows (made
+        once per ``row_bytes`` and kept). The rows must not overlap; that
+        is the caller's to keep."""
+        if row_bytes <= 0 or row_bytes % 16:
+            raise ValueError(f"K1 moves 16-byte chunks: row_bytes "
+                             f"{row_bytes} must be a positive multiple of "
+                             f"16")
+        if row_at is None:
+            at = self._staged.get(row_bytes)
+            if at is None:
+                pairs = torch.where(self.pairs >= 0, self.pairs * row_bytes,
+                                    -1)
+                at = self._staged[row_bytes] = RowOffsets(
+                    pairs, row_bytes, self.n * self.rows * row_bytes)
+            return at
+        row_at = np.asarray(row_at, dtype=np.int64)
+        if row_at.shape != (self.n * self.rows,):
+            raise ValueError(f"row_at must give the {self.n * self.rows} "
+                             f"rows' offsets, got shape {row_at.shape}")
+        if row_at.size and (row_at.min() < 0 or (row_at % 16).any()):
+            raise ValueError("row offsets must be non-negative multiples "
+                             "of 16")
+        table = torch.from_numpy(row_at).to(self.device)
+        pairs = torch.where(self.pairs >= 0,
+                            table[self.pairs.clamp(min=0)], -1)
+        span = int(row_at.max()) + row_bytes if row_at.size else 0
+        return RowOffsets(pairs, row_bytes, span)
 
     def idle(self) -> "Moves":
         """The same sub-rounds with no move in any: ``permute_rounds`` on
@@ -208,6 +247,19 @@ class Moves:
         moves = int(self.relay_cum[s1] - self.relay_cum[s0])
         zeros = int(self.relay_zeros_cum[s1] - self.relay_zeros_cum[s0])
         return (2 * moves - zeros) * row_bytes
+
+
+@dataclasses.dataclass(frozen=True)
+class RowOffsets:
+    """Where the rows a ``Moves`` names lie in one flat uint8 allocation
+    (``Moves.offsets``): ``pairs`` int64 ``[M, 2]``, the moves'
+    ``(dst, src)`` as byte offsets, multiples of 16 (``src`` -1: a zero
+    write), on the moves' device; every row ``row_bytes`` long and inside
+    the allocation's first ``span`` bytes."""
+
+    pairs: torch.Tensor
+    row_bytes: int
+    span: int
 
 
 def _prefix(per_subround: np.ndarray) -> np.ndarray:
@@ -257,33 +309,63 @@ def _span(moves: Moves, s0: int, s1: Optional[int]) -> Tuple[int, int]:
     return s0, s1
 
 
-def _check_rounds(buf: torch.Tensor, moves: Moves) -> None:
-    if buf.dtype != torch.uint8 or buf.dim() != 3 or not buf.is_contiguous():
-        raise ValueError(f"buf must be a contiguous [n, rows, row_bytes] "
-                         f"uint8 tensor, got {buf.dtype} {tuple(buf.shape)}")
-    if tuple(buf.shape[:2]) != (moves.n, moves.rows):
-        raise ValueError(f"the moves index a [{moves.n}, {moves.rows}] "
-                         f"buffer, got {tuple(buf.shape)}")
+def _check_rounds(buf: torch.Tensor, moves: Moves,
+                  at: Optional[RowOffsets]) -> int:
+    """Raises unless ``buf`` is what ``moves`` (and ``at``) address;
+    returns the rows' bytes."""
+    if at is None:
+        if buf.dtype != torch.uint8 or buf.dim() != 3 or \
+                not buf.is_contiguous():
+            raise ValueError(f"buf must be a contiguous [n, rows, "
+                             f"row_bytes] uint8 tensor, got {buf.dtype} "
+                             f"{tuple(buf.shape)}")
+        if tuple(buf.shape[:2]) != (moves.n, moves.rows):
+            raise ValueError(f"the moves index a [{moves.n}, {moves.rows}] "
+                             f"buffer, got {tuple(buf.shape)}")
+        row_bytes = buf.shape[2]
+    else:
+        if buf.dtype != torch.uint8 or not buf.is_contiguous() or \
+                buf.numel() < at.span:
+            raise ValueError(f"buf must be a contiguous uint8 tensor of at "
+                             f"least {at.span} bytes, got {buf.dtype} "
+                             f"{tuple(buf.shape)}")
+        if tuple(at.pairs.shape) != tuple(moves.pairs.shape) or \
+                at.pairs.device != buf.device:
+            raise ValueError("the row offsets are not the moves' or lie on "
+                             "another device than the buffer")
+        row_bytes = at.row_bytes
     if moves.device != buf.device or moves.offs.device != buf.device:
         raise ValueError(f"the moves lie on {moves.device}, the buffer on "
                          f"{buf.device}")
+    return row_bytes
 
 
 def permute_rounds_ref(buf: torch.Tensor, moves: Moves, s0: int = 0,
-                       s1: Optional[int] = None) -> torch.Tensor:
+                       s1: Optional[int] = None,
+                       at: Optional[RowOffsets] = None) -> torch.Tensor:
     """The plain PyTorch version of ``permute_rounds``: sub-rounds
     ``[s0, s1)`` of ``moves`` one after another, in place on ``buf``; every
-    read of a sub-round precedes its writes."""
-    _check_rounds(buf, moves)
+    read of a sub-round precedes its writes. With ``at`` the rows lie in
+    the flat ``buf`` at its byte offsets."""
+    row_bytes = _check_rounds(buf, moves, at)
     s0, s1 = _span(moves, s0, s1)
-    flat = buf.view(moves.n * moves.rows, buf.shape[2])
+    if at is None:
+        flat, pairs = buf.view(moves.n * moves.rows, row_bytes), moves.pairs
+        cols = None
+    else:
+        flat, pairs = buf.view(-1), at.pairs
+        cols = torch.arange(row_bytes, device=buf.device)
     offs = np.concatenate([[0], np.cumsum(moves.counts)]).tolist()
     for s in range(s0, s1):
         if offs[s] == offs[s + 1]:
             continue
-        dst, src = moves.pairs[offs[s]:offs[s + 1]].unbind(1)
-        val = flat[src.clamp(min=0)]              # a copy: reads first
-        val[src < 0] = 0
+        dst, src = pairs[offs[s]:offs[s + 1]].unbind(1)
+        zero = src < 0
+        src = src.clamp(min=0)
+        if cols is not None:
+            dst, src = dst[:, None] + cols, src[:, None] + cols
+        val = flat[src]                           # a copy: reads first
+        val[zero] = 0
         flat[dst] = val
     return buf
 
@@ -325,49 +407,70 @@ def _workspace(device: torch.device, stream: int) -> torch.Tensor:
 
 
 def permute_rounds(buf: torch.Tensor, moves: Moves, s0: int = 0,
-                   s1: Optional[int] = None) -> torch.Tensor:
+                   s1: Optional[int] = None,
+                   at: Optional[RowOffsets] = None) -> torch.Tensor:
     """Sub-rounds ``[s0, s1)`` of ``moves`` (all by default) on all virtual
     devices, in place: one launch of the persistent CUDA kernel for a CUDA
-    ``buf``, ``permute_rounds_ref`` for a CPU ``buf``. A refused launch
-    raises; nothing falls back to one launch per sub-round. Either way
-    ``moved_bytes`` and ``relay_bytes`` grow by the bytes the sub-rounds
-    move."""
-    global rounds_launches, subrounds
-    _check_rounds(buf, moves)
+    ``buf`` (``launch_rounds``, after every check), ``permute_rounds_ref``
+    for a CPU ``buf``. ``buf`` is the ``[n, rows, row_bytes]`` buffer, or
+    with ``at`` (``Moves.offsets``) a flat uint8 allocation that holds the
+    rows at those byte offsets. A refused launch raises; nothing falls back
+    to one launch per sub-round. Either way ``moved_bytes`` and
+    ``relay_bytes`` grow by the bytes the sub-rounds move."""
+    row_bytes = _check_rounds(buf, moves, at)
     s0, s1 = _span(moves, s0, s1)
     if buf.device.type == "cpu":
-        permute_rounds_ref(buf, moves, s0, s1)
-        _count_bytes(moves, s0, s1, buf.shape[2])
+        permute_rounds_ref(buf, moves, s0, s1, at)
+        _count_bytes(moves, s0, s1, row_bytes)
         return buf
     if buf.device.type != "cuda":
         raise ValueError(f"permute_rounds runs on cuda or cpu, not "
                          f"{buf.device}")
-    n, rows, row_bytes = buf.shape
     if row_bytes % 16 or buf.data_ptr() % 16:
         raise ValueError(f"the kernel moves 16-byte chunks: row_bytes "
                          f"{row_bytes} and the buffer address must be "
                          f"multiples of 16")
-    if s0 == s1 or n == 0 or row_bytes == 0:
+    if s0 == s1 or moves.n == 0 or row_bytes == 0:
         return buf
-    chunks = row_bytes // 16
-    if int(moves.counts[s0:s1].max()) * chunks > 2 ** 30:
+    if not fits_launch(moves, row_bytes, s0, s1):
         raise ValueError(f"a sub-round moves more than 2**30 chunks of 16 "
                          f"bytes ({int(moves.counts[s0:s1].max())} rows of "
-                         f"{chunks})")
-    lib = _rounds_kernel()
+                         f"{row_bytes // 16})")
+    if at is None:
+        at = moves.offsets(row_bytes)
     with torch.cuda.device(buf.device):
-        stream = torch.cuda.current_stream(buf.device).cuda_stream
-        ws = _workspace(buf.device, stream)
-        rc = lib.permute_rounds(buf.data_ptr(), moves.pairs.data_ptr(),
-                                moves.offs.data_ptr(), s0, s1, chunks,
-                                ws.data_ptr(), stream)
+        launch_rounds(buf, moves, s0, s1, at,
+                      torch.cuda.current_stream(buf.device).cuda_stream)
+    return buf
+
+
+def fits_launch(moves: Moves, row_bytes: int, s0: int = 0,
+                s1: Optional[int] = None) -> bool:
+    """Whether every sub-round of ``[s0, s1)`` moves at most 2**30 chunks of
+    16 bytes, as one launch of the kernel needs."""
+    s1 = moves.num_subrounds if s1 is None else s1
+    return s0 == s1 or \
+        int(moves.counts[s0:s1].max()) * (row_bytes // 16) <= 2 ** 30
+
+
+def launch_rounds(buf: torch.Tensor, moves: Moves, s0: int, s1: int,
+                  at: RowOffsets, stream: int) -> None:
+    """One launch of the kernel over sub-rounds ``[s0, s1)`` (``s0 < s1``)
+    on the raw CUDA ``stream`` of the current device, with no check of its
+    arguments: ``permute_rounds`` makes them, and a caller that launches
+    straight holds them for every call (the runner's in-place path: once a
+    placement, ``runner.place``). Counts the launch and its bytes."""
+    global rounds_launches, subrounds
+    rc = _rounds_kernel().permute_rounds(
+        buf.data_ptr(), at.pairs.data_ptr(), moves.offs.data_ptr(), s0, s1,
+        at.row_bytes // 16, _workspace(buf.device, stream).data_ptr(),
+        stream)
     if rc != 0:
         raise RuntimeError(f"permute_rounds cooperative launch failed: CUDA "
                            f"error {rc}")
     rounds_launches += 1
     subrounds += s1 - s0
-    _count_bytes(moves, s0, s1, row_bytes)
-    return buf
+    _count_bytes(moves, s0, s1, at.row_bytes)
 
 
 def _count_bytes(moves: Moves, s0: int, s1: int, row_bytes: int) -> None:

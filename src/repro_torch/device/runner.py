@@ -19,15 +19,44 @@ device's copy as ``(n,) + x.shape`` with relay rows and padding dropped.
 Rows are raw bytes (padded to a multiple of 16), so every dtype comes
 through bit-exact.
 
-The copy out (``unpack``) is one launch of the hand-written CUDA kernel
-``csrc/unpack_rows.cu`` on a GPU (``unpack_rows``) and the plain version
-``unpack_ref`` on the CPU. ``unpack_launches`` counts the kernel's
-launches and ``unpack_bytes`` the bytes they read and wrote.
+Two layouts hold the rows (``place`` chooses, from what it observes):
+
+* **in place** (``pack_inplace``, ``unpack_inplace``; on a GPU
+  ``run_inplace`` makes their three launches): the stacked output
+  is where K1 writes. One allocation holds the ``[n, nbytes]`` output and,
+  after it, a small zeroed scratch region. Packet row p covers payload
+  bytes ``[p * row_bytes, (p + 1) * row_bytes)`` (the padding at the end);
+  a row wholly inside the payload lies in its device's output, the row
+  that straddles the payload's end, rows of padding alone and the relay
+  rows in scratch. A request starts the allocation (``fill_inplace``: the
+  root's payload into its output and its tail into its straddling row,
+  scratch zeroed), runs K1 on the rows' byte offsets, and copies each
+  device's straddling row into its output's tail (``unpack_tail``). Taken
+  for K1's moves (on a GPU always; on the CPU where the caller passes
+  them) when ``nbytes`` is a multiple of 16 and the plan writes every
+  non-root packet row inside the payload before anything reads it
+  (``writes_first``), so that no output byte depends on what the
+  allocation held.
+* **staged** (``pack``, ``unpack``): the ``[n, rows, row_bytes]`` buffer,
+  packet row p holding payload bytes ``[p * used, (p + 1) * used)``, zero
+  filled, then copied out. Taken otherwise, and on the CPU's sub-round
+  path.
+
+``inplace_runs`` and ``staged_runs`` count the broadcasts of each.
+
+The copy out (``unpack``, and the in-place tail) is one launch of the
+hand-written CUDA kernel ``csrc/unpack_rows.cu`` on a GPU (``unpack_rows``,
+``unpack_tail``) and the plain version (``unpack_ref``, ``tail_ref``) on
+the CPU. ``unpack_launches`` counts the kernel's launches and
+``unpack_bytes`` the bytes they read and wrote. The in-place start is one
+launch of the same library's ``fill_inplace`` kernel on a GPU
+(``fill_launches`` counts them) and ``fill_ref`` on the CPU.
 
 While ``repro_torch.spans`` records, a broadcast opens ``runner.pack``,
 ``runner.cycles`` and ``runner.unpack`` (on a GPU: the one ``unpack_rows``
-launch), and a lowering ``lower.moves`` around ``lower.slot_tables``,
-``lower.compact_moves`` and ``lower.upload``.
+launch, if any), its first of a layout ``lower.place``, and a lowering
+``lower.moves`` around ``lower.slot_tables``, ``lower.compact_moves`` and
+``lower.upload``.
 
 ``binomial_broadcast`` and ``chain_broadcast`` are the reference's two
 whole-message baselines in plain torch on the same virtual mesh (the JAX
@@ -38,19 +67,25 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
 
 from repro_torch import spans
-from repro_torch.device.round_step import (Moves, compact_moves,
-                                           permute_rounds, permute_step)
+from repro_torch.device.round_step import (Moves, RowOffsets,
+                                           compact_moves, fits_launch,
+                                           launch_rounds, permute_rounds,
+                                           permute_step)
 from repro_torch.device.schedule import _NOSEND, DeviceSchedule
 
 unpack_launches = 0   # kernel launches of unpack_rows since the last reset
 unpack_bytes = 0      # bytes those launches read plus wrote
+inplace_runs = 0      # broadcasts whose K1 wrote into the stacked output
+staged_runs = 0       # broadcasts through the staging buffer
+fill_launches = 0     # kernel launches of fill_inplace since the last reset
 
-_unpack_fn = None
+_unpack_fn = _fill_fn = None
 
 
 def resolve_device(device) -> torch.device:
@@ -180,15 +215,202 @@ def pack(x: torch.Tensor, lay: PacketLayout, root: int,
         return buf
 
 
+@dataclasses.dataclass(frozen=True)
+class Placement:
+    """Where a broadcast of ``nbytes`` payload bytes on ``lay`` keeps its
+    rows: in place (module docstring) when ``at`` holds their byte offsets
+    in the in-place allocation (``inplace_rows``), staged when it is
+    None."""
+
+    lay: PacketLayout
+    nbytes: int
+    at: Optional[RowOffsets] = None
+
+    @property
+    def inplace(self) -> bool:
+        return self.at is not None
+
+    @property
+    def full(self) -> int:
+        """Packet rows of a device that lie wholly inside its output."""
+        return self.nbytes // self.lay.row_bytes
+
+    @property
+    def scratch(self) -> int:
+        """Rows of a device in scratch: the one that straddles the
+        payload's end, those of padding alone, the relay rows."""
+        return self.lay.rows - self.full
+
+    @property
+    def tail(self) -> int:
+        """Bytes of a device's output after its full rows: the straddling
+        row's share."""
+        return self.nbytes - self.full * self.lay.row_bytes
+
+    @property
+    def alloc_bytes(self) -> int:
+        """The in-place allocation: the output, then scratch."""
+        return self.lay.n * (self.nbytes + self.scratch * self.lay.row_bytes)
+
+
+def inplace_rows(lay: PacketLayout, nbytes: int) -> np.ndarray:
+    """int64 ``[n * rows]``: the byte offset of every row of every device
+    in the in-place allocation. Row p of device v lies at ``v * nbytes + p
+    * row_bytes`` when ``(p + 1) * row_bytes <= nbytes``; its other rows lie
+    in scratch after the ``n * nbytes`` output, device-major."""
+    full = nbytes // lay.row_bytes
+    v = np.arange(lay.n, dtype=np.int64)[:, None]
+    r = np.arange(lay.rows, dtype=np.int64)[None]
+    scratch = lay.n * nbytes + (v * (lay.rows - full) + r - full) \
+        * lay.row_bytes
+    return np.where(r < full, v * nbytes + r * lay.row_bytes,
+                    scratch).reshape(-1)
+
+
+def writes_first(moves: Moves, root: int, full: int) -> bool:
+    """Whether K1's ``moves`` write each packet row ``p < full`` of every
+    device but ``root`` in an earlier sub-round than any that reads it, so
+    that what such a row held before K1 reaches no byte of any row after
+    it (a sub-round's reads precede its writes). A row never written
+    fails. Computed on the moves' device, one sync."""
+    dev, count, rows = moves.device, moves.num_subrounds, moves.n * moves.rows
+    dst, src = moves.pairs.unbind(1)
+    sub = torch.repeat_interleave(torch.arange(count, device=dev),
+                                  moves.offs.diff(), output_size=len(dst))
+    never = torch.full((rows + 1,), count, dtype=torch.int64, device=dev)
+    first_w = never.clone().scatter_reduce_(0, dst, sub, "amin")
+    # a zero write reads nothing: its read lands on the spare last slot
+    first_r = never.scatter_reduce_(0, torch.where(src >= 0, src, rows),
+                                    sub, "amin")
+    ok = (first_w < first_r)[:rows].view(moves.n, moves.rows)[:, :full]
+    ok[root] = True                  # the root's rows start as the payload
+    return bool(ok.all())
+
+
+def place(moves: Moves, lay: PacketLayout, nbytes: int, root: int,
+          cache: Optional[dict] = None) -> Placement:
+    """The layout of a broadcast of ``nbytes`` bytes on ``lay`` by K1's
+    ``moves`` from ``root``: in place when ``nbytes`` is a positive
+    multiple of 16, every sub-round fits one launch (``fits_launch``) and
+    ``writes_first`` holds, else staged. ``cache`` (a dict the caller
+    keeps; the executable keeps one) holds each (layout, size)'s
+    placement, so a shape's offsets and checks are made once."""
+    key = (lay, nbytes)
+    plc = None if cache is None else cache.get(key)
+    if plc is None:
+        if (moves.n, moves.rows) != (lay.n, lay.rows):
+            raise ValueError(f"the moves index [{moves.n}, {moves.rows}] "
+                             f"rows, the layout has [{lay.n}, {lay.rows}]")
+        with spans.span("lower.place"):
+            plc = Placement(lay, nbytes)
+            if nbytes > 0 and nbytes % 16 == 0 and fits_launch(
+                    moves, lay.row_bytes) and writes_first(
+                    moves, root, nbytes // lay.row_bytes):
+                plc = Placement(lay, nbytes, moves.offsets(
+                    lay.row_bytes, inplace_rows(lay, nbytes)))
+        if cache is not None:
+            cache[key] = plc
+    return plc
+
+
+def pack_inplace(x: torch.Tensor, plc: Placement, root: int,
+                 device: torch.device) -> torch.Tensor:
+    """A fresh in-place allocation (``plc.alloc_bytes`` uint8, whatever
+    the allocator's block held) as K1 starts (``fill_inplace``). ``x`` is
+    only read."""
+    with spans.span("runner.pack"):
+        alloc = torch.empty(plc.alloc_bytes, dtype=torch.uint8,
+                            device=device)
+        fill_inplace(alloc, x, plc, root)
+        return alloc
+
+
+def fill_ref(alloc: torch.Tensor, xb: torch.Tensor, plc: Placement,
+             root: int) -> None:
+    """The plain version of ``fill_inplace`` on the payload's bytes ``xb``:
+    a zero fill of scratch and two copies."""
+    lay, nb = plc.lay, plc.nbytes
+    end = lay.n * nb
+    alloc[end:].zero_()
+    alloc[root * nb:(root + 1) * nb] = xb
+    if plc.tail:
+        at = end + root * plc.scratch * lay.row_bytes
+        alloc[at:at + plc.tail] = xb[nb - plc.tail:]
+
+
+def _fill_kernel():
+    global _fill_fn
+    if _fill_fn is None:
+        from repro_torch.nvcc import load
+        fn = load("unpack_rows").fill_inplace
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_int] + [ctypes.c_longlong] * 3 + \
+            [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fill_fn = fn
+    return _fill_fn
+
+
+def fill_inplace(alloc: torch.Tensor, x: torch.Tensor, plc: Placement,
+                 root: int) -> None:
+    """Start the in-place allocation ``alloc`` as K1 needs it, whatever it
+    held: the root's output holds the payload, and scratch is zero but for
+    the root's straddling row, which holds the payload's tail. Nothing else
+    is written: K1 writes every other row inside the payload before
+    anything reads it (``writes_first``). On a GPU one launch of
+    ``csrc/unpack_rows.cu``'s ``fill_inplace`` on the current stream (every
+    check raises before the kernel is built or launched); on the CPU
+    ``fill_ref``. ``x`` is only read."""
+    lay, nb = plc.lay, plc.nbytes
+    xb = _as_bytes(x).to(alloc.device)
+    if (alloc.dtype != torch.uint8 or alloc.dim() != 1
+            or not alloc.is_contiguous() or alloc.numel() != plc.alloc_bytes
+            or xb.numel() != nb):
+        raise ValueError(f"alloc must be a contiguous uint8 tensor of "
+                         f"{plc.alloc_bytes} bytes and x {nb} bytes, got "
+                         f"{alloc.dtype} {tuple(alloc.shape)} and "
+                         f"{xb.numel()} bytes")
+    if alloc.device.type != "cuda":
+        fill_ref(alloc, xb, plc, root)
+        return
+    if nb % 16 or lay.row_bytes % 16 or alloc.data_ptr() % 16:
+        raise ValueError("the kernel copies 16-byte chunks: nbytes, "
+                         "row_bytes and the address must be multiples of 16")
+    if xb.data_ptr() % 16:
+        xb = xb.clone()
+    with torch.cuda.device(alloc.device):
+        _launch_fill(alloc, xb, plc, root,
+                     torch.cuda.current_stream(alloc.device).cuda_stream)
+
+
+def _launch_fill(alloc: torch.Tensor, xb: torch.Tensor, plc: Placement,
+                 root: int, stream: int) -> None:
+    """One ``fill_inplace`` launch on the raw ``stream`` of the current
+    device, unchecked (the payload's bytes ``xb`` on the 16-byte grid);
+    counts it."""
+    global fill_launches
+    lay = plc.lay
+    rc = _fill_kernel()(xb.data_ptr(), alloc.data_ptr(), lay.n, root,
+                        plc.nbytes, plc.scratch * lay.row_bytes, plc.tail,
+                        stream)
+    if rc != 0:
+        raise RuntimeError(f"fill_inplace kernel launch failed: CUDA error "
+                           f"{rc}")
+    fill_launches += 1
+
+
 def run_cycles(buf: torch.Tensor, tabs: torch.Tensor = None,
-               moves: Moves = None) -> torch.Tensor:
-    """The cycle loop. On a CUDA ``buf``: one ``permute_rounds`` launch over
-    every sub-round of ``moves`` (``build_moves``). Elsewhere: one
-    ``permute_step`` per (cycle, sub-round) of ``tabs`` (``build_tables``).
-    The reference's cycle-start gather (a round step with no write) needs
-    no work: nothing is written between it and the sub-round-0 read."""
-    if buf.device.type == "cuda":
-        return permute_rounds(buf, moves)
+               moves: Moves = None,
+               at: Optional[RowOffsets] = None) -> torch.Tensor:
+    """The cycle loop. With ``moves`` (``build_moves``; on a GPU always):
+    ``permute_rounds`` over every sub-round of them, on a CUDA ``buf`` one
+    launch, at the rows' offsets ``at`` for an in-place allocation.
+    Otherwise: one ``permute_step`` per (cycle, sub-round) of ``tabs``
+    (``build_tables``). The reference's cycle-start gather (a round step
+    with no write) needs no work: nothing is written between it and the
+    sub-round-0 read."""
+    if moves is not None:
+        return permute_rounds(buf, moves, at=at)
     cycles, d = tabs.shape[:2]
     for c in range(cycles):
         for r in range(d):
@@ -216,7 +438,7 @@ def _unpack_kernel():
         from repro_torch.nvcc import load
         fn = load("unpack_rows").unpack_rows
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] + \
-            [ctypes.c_longlong] * 4 + [ctypes.c_void_p]
+            [ctypes.c_longlong] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _unpack_fn = fn
     return _unpack_fn
@@ -227,7 +449,6 @@ def unpack_rows(buf: torch.Tensor, lay: PacketLayout,
     """``unpack_ref``'s result from one launch of ``csrc/unpack_rows.cu``
     on ``buf``'s GPU, on the current stream. Every check raises before the
     kernel is built or launched."""
-    global unpack_launches, unpack_bytes
     if (buf.dtype != torch.uint8 or not buf.is_contiguous()
             or tuple(buf.shape) != (lay.n, lay.rows, lay.row_bytes)):
         raise ValueError(f"buf must be a contiguous uint8 [n, rows, "
@@ -246,19 +467,28 @@ def unpack_rows(buf: torch.Tensor, lay: PacketLayout,
     if buf.data_ptr() % 16:
         raise ValueError("the buffer's address must be a multiple of 16")
     out = torch.empty((lay.n, nbytes), dtype=torch.uint8, device=buf.device)
-    if lay.n == 0 or nbytes == 0:
-        return out
-    fn = _unpack_kernel()
-    with torch.cuda.device(buf.device):
-        stream = torch.cuda.current_stream(buf.device).cuda_stream
-        rc = fn(buf.data_ptr(), out.data_ptr(), lay.n, lay.rows,
-                lay.row_bytes, lay.used, nbytes, stream)
+    if lay.n and nbytes:
+        with torch.cuda.device(buf.device):
+            _launch_unpack(buf.data_ptr(), out.data_ptr(), lay.n, lay.rows,
+                           lay.row_bytes, lay.used, nbytes, nbytes, 0,
+                           torch.cuda.current_stream(buf.device).cuda_stream)
+    return out
+
+
+def _launch_unpack(src: int, dst: int, n: int, rows: int, row_bytes: int,
+                   used: int, nbytes: int, pitch: int, off: int,
+                   stream: int) -> None:
+    """One ``unpack_rows`` launch on the raw ``stream`` of the current
+    device (the C entry's arguments, addresses as ints), unchecked; counts
+    it and its bytes."""
+    global unpack_launches, unpack_bytes
+    rc = _unpack_kernel()(src, dst, n, rows, row_bytes, used, nbytes, pitch,
+                          off, stream)
     if rc != 0:
         raise RuntimeError(f"unpack_rows kernel launch failed: CUDA error "
                            f"{rc}")
     unpack_launches += 1
-    unpack_bytes += 2 * lay.n * nbytes
-    return out
+    unpack_bytes += 2 * n * nbytes
 
 
 def unpack(buf: torch.Tensor, lay: PacketLayout,
@@ -276,23 +506,135 @@ def unpack(buf: torch.Tensor, lay: PacketLayout,
         return out.view(x.dtype).reshape((lay.n,) + tuple(x.shape))
 
 
+def tail_ref(alloc: torch.Tensor, plc: Placement) -> None:
+    """The plain version of ``unpack_tail``: every device's straddling
+    row's share into its output's last ``plc.tail`` bytes, in place in the
+    in-place allocation, in one strided copy."""
+    lay, nb = plc.lay, plc.nbytes
+    end = lay.n * nb
+    scratch = alloc[end:].view(lay.n, plc.scratch, lay.row_bytes)
+    alloc[:end].view(lay.n, nb)[:, nb - plc.tail:] = \
+        scratch[:, 0, :plc.tail]
+
+
+def unpack_tail(alloc: torch.Tensor, plc: Placement) -> None:
+    """``tail_ref`` in one launch of ``csrc/unpack_rows.cu`` on the
+    allocation's GPU, on the current stream: scratch as ``[n, scratch,
+    row_bytes]`` rows, each device's first one's ``tail`` bytes into its
+    output at ``full * row_bytes``, the output's pitch ``nbytes``. Every
+    check raises before the kernel is built or launched."""
+    lay, nb, tail = plc.lay, plc.nbytes, plc.tail
+    if (alloc.dtype != torch.uint8 or not alloc.is_contiguous()
+            or alloc.numel() != plc.alloc_bytes):
+        raise ValueError(f"alloc must be a contiguous uint8 tensor of "
+                         f"{plc.alloc_bytes} bytes, got {alloc.dtype} "
+                         f"{tuple(alloc.shape)}")
+    if nb % 16 or lay.row_bytes % 16 or alloc.data_ptr() % 16:
+        raise ValueError("the kernel copies 16-byte chunks: nbytes, "
+                         "row_bytes and the address must be multiples of 16")
+    if alloc.device.type != "cuda":
+        raise ValueError(f"unpack_tail runs on cuda, not {alloc.device}; "
+                         f"tail_ref is the plain version")
+    if lay.n and tail:
+        with torch.cuda.device(alloc.device):
+            _launch_tail(alloc, plc,
+                         torch.cuda.current_stream(alloc.device).cuda_stream)
+
+
+def _launch_tail(alloc: torch.Tensor, plc: Placement, stream: int) -> None:
+    """``unpack_tail``'s launch on the raw ``stream`` of the current
+    device, unchecked."""
+    lay, nb, tail = plc.lay, plc.nbytes, plc.tail
+    base = alloc.data_ptr()
+    _launch_unpack(base + lay.n * nb, base, lay.n, plc.scratch,
+                   lay.row_bytes, tail, tail, nb, nb - tail, stream)
+
+
+def unpack_inplace(alloc: torch.Tensor, plc: Placement,
+                   x: torch.Tensor) -> torch.Tensor:
+    """Every device's copy, stacked as ``(n,) + x.shape`` in ``x``'s dtype:
+    the allocation's first ``n * nbytes`` bytes, once each device's
+    straddling row is in its output's tail (``unpack_tail`` on a GPU,
+    ``tail_ref`` on the CPU). Contiguous; scratch stays allocated behind
+    it."""
+    with spans.span("runner.unpack"):
+        if plc.tail:
+            if alloc.device.type == "cuda":
+                unpack_tail(alloc, plc)
+            else:
+                tail_ref(alloc, plc)
+        n, nb = plc.lay.n, plc.nbytes
+        return alloc[:n * nb].view(n, nb).view(x.dtype).reshape(
+            (n,) + tuple(x.shape))
+
+
+def run_inplace(x: torch.Tensor, plc: Placement, moves: Moves, root: int,
+                device: torch.device) -> torch.Tensor:
+    """One in-place broadcast on a GPU, as ``pack_inplace``, K1 at the
+    placement's offsets and ``unpack_inplace`` make it, in their three
+    launches on the current stream, found once. What holds for every
+    request of a placement was checked when ``place`` made it; only the
+    payload is checked here. So the host's work before K1's launch, during
+    which the card idles, is short."""
+    lay, nb = plc.lay, plc.nbytes
+    xb = _as_bytes(x).to(device)
+    if xb.numel() != nb:
+        raise ValueError(f"the placement is for {nb} bytes, x has "
+                         f"{xb.numel()}")
+    if xb.data_ptr() % 16:
+        xb = xb.clone()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        with spans.span("runner.pack"):
+            alloc = torch.empty(plc.alloc_bytes, dtype=torch.uint8,
+                                device=device)
+            _launch_fill(alloc, xb, plc, root, stream)
+        with spans.span("runner.cycles"):
+            if moves.num_subrounds:
+                launch_rounds(alloc, moves, 0, moves.num_subrounds, plc.at,
+                              stream)
+        with spans.span("runner.unpack"):
+            if plc.tail:
+                _launch_tail(alloc, plc, stream)
+    return alloc[:lay.n * nb].view(lay.n, nb).view(x.dtype).reshape(
+        (lay.n,) + tuple(x.shape))
+
+
 def bbs_broadcast(x: torch.Tensor, sched: DeviceSchedule, num_groups: int,
                   device="cuda", tables: torch.Tensor = None,
-                  moves: Moves = None) -> torch.Tensor:
+                  moves: Moves = None,
+                  placements: Optional[dict] = None) -> torch.Tensor:
     """Broadcast ``x`` from the schedule's root to all ``n`` virtual
     devices; returns the stacked copies ``(n,) + x.shape`` on ``device``.
-    ``moves`` (on a GPU) or ``tables`` (on the CPU) reuses a ``build_moves``
-    or ``build_tables`` upload of the same schedule."""
+    On a GPU K1 runs the plan's ``moves`` (or a ``build_moves`` of the
+    schedule), in place or staged as ``place`` chooses; ``placements`` is
+    ``place``'s cache (the executable keeps one). On the CPU the same runs
+    where ``moves`` is given; otherwise the staged buffer takes one
+    ``permute_step`` a sub-round of ``tables`` (or a ``build_tables``
+    upload)."""
+    global inplace_runs, staged_runs
     dev = resolve_device(device)
     lay = packet_layout(x, sched, num_groups)
-    if dev.type == "cuda":
-        if moves is None:
-            moves = build_moves(sched, num_groups, dev)
-    elif tables is None:
+    if dev.type == "cuda" and moves is None:
+        moves = build_moves(sched, num_groups, dev)
+    if moves is None and tables is None:
         tables = build_tables(sched, num_groups, dev)
+    plc = None if moves is None else place(
+        moves, lay, x.numel() * x.element_size(), sched.root, placements)
+    if plc is not None and plc.inplace:
+        if dev.type == "cuda":
+            out = run_inplace(x, plc, moves, sched.root, dev)
+        else:
+            alloc = pack_inplace(x, plc, sched.root, dev)
+            with spans.span("runner.cycles"):
+                permute_rounds(alloc, moves, at=plc.at)
+            out = unpack_inplace(alloc, plc, x)
+        inplace_runs += 1
+        return out
     buf = pack(x, lay, sched.root, dev)
     with spans.span("runner.cycles"):
         run_cycles(buf, tables, moves)
+    staged_runs += 1
     return unpack(buf, lay, x)
 
 

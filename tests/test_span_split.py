@@ -221,17 +221,34 @@ def test_split_refuses_a_window_whose_runs_do_not_match(tool):
 
 
 def test_unpack_share_of_the_hbm_peak_by_shape(tool):
-    """``unpack_hbm_pct``: 2 x n x nbytes at 3.35 TB/s over the unpack's
-    device ms a request, by shape; a shape with no unpack time is left
-    out."""
+    """``unpack_hbm_pct``: the staged copy's 2 x n x nbytes at 3.35 TB/s
+    over the unpack's device ms a request, by shape; a shape with no unpack
+    time is left out."""
     per_shape = {"0/128000000": {"runner.pack": 10.0, "runner.cycles": 30.0,
                                  "runner.unpack": 25.0},
                  "17/4000000": {"runner.pack": 0.3, "runner.cycles": 2.0,
                                 "runner.unpack": 0.0}}
-    got = tool.unpack_hbm_pct(per_shape, 256)
+    moved = {"0/128000000": 2 * 256 * 128e6, "17/4000000": 2 * 256 * 4e6}
+    got = tool.unpack_hbm_pct(per_shape, moved)
     assert got == {"0/128000000": pytest.approx(
         100 * 2 * 256 * 128e6 / 3.35e12 / 25e-3)}
     assert 78 < got["0/128000000"] < 79
+
+
+def test_unpack_share_on_the_bytes_unpack_rows_moved(tool):
+    """In place, ``unpack_rows`` copies only the tails: ``unpack_by_shape``
+    averages each request's growth of ``runner.unpack_bytes`` by shape, and
+    ``unpack_hbm_pct`` divides those bytes at the peak by the unpack's
+    device ms; a shape that moved none (no straddling row) is left out."""
+    served = [{"root": 0, "nbytes": 128, "unpack": 2_000_000},
+              {"root": 0, "nbytes": 128, "unpack": 4_000_000},
+              {"root": 17, "nbytes": 64, "unpack": 0}]
+    moved = tool.unpack_by_shape(served)
+    assert moved == {"0/128": 3_000_000, "17/64": 0}
+    per_shape = {"0/128": {"runner.unpack": 0.002},
+                 "17/64": {"runner.unpack": 0.001}}
+    got = tool.unpack_hbm_pct(per_shape, moved)
+    assert got == {"0/128": pytest.approx(100 * 3e6 / 3.35e12 / 2e-6)}
 
 
 def test_relay_share_by_shape(tool):

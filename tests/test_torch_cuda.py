@@ -120,10 +120,11 @@ def test_small_broadcast_on_card_matches_cpu(gpu, algo):
 @pytest.mark.parametrize("nbytes", [64_000, 1_000_000])
 def test_butterfly_relay_broadcast_on_card_matches_cpu(gpu, nbytes):
     """A flattened butterfly's two-tree plan, whose relay chains write and
-    read relay rows: on the card one ``permute_rounds`` and one
-    ``unpack_rows`` launch, bit-equal to the CPU's path, and the relay
-    bytes the card's launch counts equal those of the same moves run by
-    the plain version on the CPU."""
+    read relay rows: on the card in place, one ``fill_inplace`` launch,
+    one ``permute_rounds`` launch and one ``unpack_rows`` launch for the
+    tail if a row straddles the payload's end, bit-equal to the CPU's
+    staged path, and the relay bytes the card's launch counts equal those
+    of the same moves run by the plain version on the CPU."""
     from repro_torch import api
     from repro_torch.core import topology as T
     from repro_torch.core.simconfig import DeviceConfig, SimConfig
@@ -135,12 +136,18 @@ def test_butterfly_relay_broadcast_on_card_matches_cpu(gpu, nbytes):
     assert ex.candidate == "two_tree" and ex.schedule.num_relay > 0
     x = ex.default_payload(seed=32)
     before = (rs.rounds_launches, rs.subrounds, rs.relay_bytes,
-              runner.unpack_launches)
+              runner.unpack_launches, runner.inplace_runs,
+              runner.fill_launches)
     out = ex.run(x)
     torch.cuda.synchronize()
     card_relay = rs.relay_bytes - before[2]
+    plc = runner.place(ex.moves(), runner.packet_layout(
+        x, ex.schedule, ex.num_groups), nbytes, 7, ex.placements())
+    assert plc.inplace and runner.inplace_runs - before[4] == 1
+    assert runner.fill_launches - before[5] == 1
     assert (rs.rounds_launches - before[0], rs.subrounds - before[1],
-            runner.unpack_launches - before[3]) == (1, ex.num_subrounds, 1)
+            runner.unpack_launches - before[3]) == (
+        1, ex.num_subrounds, int(plc.tail > 0))
     cpu_ex = model.executable(root=7, nbytes=nbytes, config=SimConfig(
         device=DeviceConfig(device="cpu")))
     assert torch.equal(out.cpu().view(torch.uint8),
@@ -291,6 +298,165 @@ def test_rounds_kernel_rejects_bad_inputs(gpu):
         .multi_processor_count and threads > 0
 
 
+@pytest.mark.parametrize("layout", ["staged", "inplace", "shuffled"])
+def test_rounds_kernel_on_byte_offsets_matches_plain(gpu, layout):
+    """K1 on byte offsets (``Moves.offsets``) bit-identical to
+    ``permute_rounds_ref`` at the same offsets: the staged buffer's rows on
+    its flat view, a real plan's in-place placement (``runner.place``) on a
+    random allocation, and random tables' rows shuffled through a larger
+    allocation."""
+    from repro_torch import api
+    from repro_torch.core import topology as T
+    from repro_torch.device import round_step as rs
+    from repro_torch.device import runner
+
+    rng = np.random.default_rng(77)
+    if layout == "inplace":
+        ex = api.compile(T.butterfly(32)).executable(root=7, nbytes=1e6)
+        x = ex.default_payload(seed=3)
+        lay = runner.packet_layout(x, ex.schedule, ex.num_groups)
+        moves = ex.moves()
+        plc = runner.place(moves, lay, 1_000_000, 7)
+        assert plc.inplace and lay.relay > 0
+        at, size = plc.at, plc.alloc_bytes
+    else:
+        n, rows, row_bytes = 64, 9, 1008
+        moves = rs.compact_moves(_rounds_tables(rng, n, rows, 40),
+                                 rows).to(gpu)
+        row_at = None
+        size = n * rows * row_bytes
+        if layout == "shuffled":
+            row_at = 32 + rng.permutation(n * rows + 7)[:n * rows] \
+                * row_bytes
+            size = 32 + (n * rows + 7) * row_bytes
+        at = moves.offsets(row_bytes, row_at)
+    g = torch.Generator(device=gpu).manual_seed(6)
+    alloc = torch.randint(0, 256, (size,), dtype=torch.uint8, device=gpu,
+                          generator=g)
+    want = rs.permute_rounds_ref(alloc.clone(), moves, at=at)
+    before = rs.rounds_launches
+    got = rs.permute_rounds(alloc.clone(), moves, at=at)
+    torch.cuda.synchronize()
+    assert rs.rounds_launches == before + 1
+    assert torch.equal(got, want)
+
+
+def _storage_bytes(t):
+    """A flat uint8 view of all of ``t``'s storage."""
+    st = t.untyped_storage()
+    return torch.empty(0, dtype=torch.uint8, device=t.device).set_(
+        st, 0, (st.nbytes(),), (1,))
+
+
+@pytest.mark.parametrize("stale", ["a5", "answer"])
+def test_inplace_broadcast_on_a_stale_block(gpu, stale):
+    """The caching allocator hands a request the block the last answer of
+    its shape held: filled with 0xA5, or holding that answer (another
+    payload's) with its scratch. The in-place broadcast still delivers
+    every byte, counts one ``runner.inplace_runs`` a request, and returns
+    a contiguous ``(n,) + x.shape`` tensor in ``x``'s dtype."""
+    from repro_torch import api
+    from repro_torch.core import topology as T
+    from repro_torch.device import runner
+
+    for topo, root, nbytes in ((T.butterfly(32), 7, 1_000_000),
+                               (T.mesh2d(4, 4), 5, 1 << 20)):
+        ex = api.compile(topo).executable(root=root, nbytes=nbytes)
+        ex.moves()                   # with its own payload's placement
+        assert [p.inplace for p in ex.placements().values()] == [True]
+        n = topo.num_nodes
+        x1, x2 = ex.default_payload(seed=1), ex.default_payload(seed=2)
+        before = (runner.inplace_runs, runner.staged_runs)
+        first = ex.run(x1)
+        torch.cuda.synchronize()
+        assert (runner.inplace_runs - before[0],
+                runner.staged_runs - before[1]) == (1, 0)
+        ptr = first.untyped_storage().data_ptr()
+        if stale == "a5":
+            _storage_bytes(first).fill_(0xA5)
+        del first
+        out = ex.run(x2)
+        torch.cuda.synchronize()
+        assert out.untyped_storage().data_ptr() == ptr   # the stale block
+        assert runner.inplace_runs - before[0] == 2
+        assert out.shape == (n,) + tuple(x2.shape) and out.dtype == x2.dtype
+        assert out.is_contiguous() and len(ex.placements()) == 1
+        want = x2.to(gpu).view(torch.uint8)
+        got = out.view(torch.uint8).reshape(n, -1)
+        assert all(torch.equal(got[v], want) for v in range(n))
+
+
+def test_unpack_tail_matches_plain(gpu):
+    """``unpack_tail`` (one ``unpack_rows`` launch at a pitch and offset)
+    byte-equal to ``tail_ref`` on a random allocation, writing each
+    device's tail and no other byte; ``unpack_bytes`` grows by 2 x n x
+    tail."""
+    from repro_torch.device import runner
+
+    lay = runner.PacketLayout(n=256, total=40, relay=33, plen=4003,
+                              used=16012, row_bytes=16016)
+    plc = runner.Placement(lay, 39 * 16016 + 4000)
+    assert (plc.full, plc.scratch, plc.tail) == (39, 34, 4000)
+    g = torch.Generator(device=gpu).manual_seed(12)
+    alloc = torch.randint(0, 256, (plc.alloc_bytes,), dtype=torch.uint8,
+                          device=gpu, generator=g)
+    want = alloc.clone()
+    runner.tail_ref(want, plc)
+    before = (runner.unpack_launches, runner.unpack_bytes)
+    runner.unpack_tail(alloc, plc)
+    torch.cuda.synchronize()
+    assert (runner.unpack_launches - before[0],
+            runner.unpack_bytes - before[1]) == (1, 2 * 256 * 4000)
+    assert torch.equal(alloc, want)
+
+
+@pytest.mark.parametrize("root,nbytes,shift", [(7, 39 * 16016 + 4000, 0),
+                                               (0, 39 * 16016, 0),
+                                               (255, 39 * 16016 + 4000, 8)])
+def test_fill_inplace_matches_plain(gpu, root, nbytes, shift):
+    """``fill_inplace`` (one launch) byte-equal to ``fill_ref`` on a random
+    allocation: the root's output, its straddling row's tail (none when no
+    row straddles), scratch zero, every other byte as it was; a payload off
+    the 16-byte grid (``shift``) is copied to one on it first."""
+    from repro_torch.device import runner
+
+    lay = runner.PacketLayout(n=256, total=40, relay=33, plen=4003,
+                              used=16012, row_bytes=16016)
+    plc = runner.Placement(lay, nbytes)
+    g = torch.Generator(device=gpu).manual_seed(13)
+    alloc = torch.randint(0, 256, (plc.alloc_bytes,), dtype=torch.uint8,
+                          device=gpu, generator=g)
+    base = torch.randint(0, 256, (nbytes + 16,), dtype=torch.uint8,
+                         device=gpu, generator=g)
+    x = base[shift:shift + nbytes]
+    want = alloc.clone()
+    runner.fill_ref(want, x, plc, root)
+    before = runner.fill_launches
+    runner.fill_inplace(alloc, x, plc, root)
+    torch.cuda.synchronize()
+    assert runner.fill_launches == before + 1
+    assert torch.equal(alloc, want)
+    with pytest.raises(ValueError):          # an allocation of other size
+        runner.fill_inplace(alloc[16:], x, plc, root)
+    assert runner.fill_launches == before + 1
+
+
+def test_measure_times_the_layout_run_takes(gpu, monkeypatch):
+    """``ExecutablePlan.measure`` packs in place where ``run`` does, so it
+    times the main path's K1 on the in-place offsets."""
+    from repro_torch import api
+    from repro_torch.core import topology as T
+    from repro_torch.device import runner
+
+    ex = api.compile(T.mesh2d(4, 4)).executable(root=5, nbytes=1 << 20)
+    calls = []
+    real = runner.pack_inplace
+    monkeypatch.setattr(runner, "pack_inplace",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    assert ex.measure(reps=2) > 0
+    assert len(calls) == 3
+
+
 def _unpack_case(gpu, lay, seed):
     g = torch.Generator(device=gpu).manual_seed(seed)
     return torch.randint(0, 256, (lay.n, lay.rows, lay.row_bytes),
@@ -361,8 +527,9 @@ def test_unpack_kernel_past_2_31_bytes(gpu):
 
 
 def test_broadcast_unpacks_in_one_launch(gpu):
-    """``ExecutablePlan.run`` on the card: one ``unpack_rows`` launch of
-    2 x n x nbytes bytes a broadcast, and ``verify`` holds."""
+    """``ExecutablePlan.run`` on the card of a payload whose size is no
+    multiple of 16 (so staged): one ``unpack_rows`` launch of 2 x n x
+    nbytes bytes a broadcast, and ``verify`` holds."""
     from repro_torch import api
     from repro_torch.core import topology as T
     from repro_torch.device import runner
@@ -370,11 +537,13 @@ def test_broadcast_unpacks_in_one_launch(gpu):
     model = api.compile(T.mesh2d(4, 4))
     ex = model.executable(root=5, nbytes=400_004)
     x = ex.default_payload(seed=4)
-    before = (runner.unpack_launches, runner.unpack_bytes)
+    before = (runner.unpack_launches, runner.unpack_bytes,
+              runner.staged_runs)
     out = ex.run(x)
     torch.cuda.synchronize()
     assert (runner.unpack_launches - before[0],
-            runner.unpack_bytes - before[1]) == (1, 2 * 16 * 400_004)
+            runner.unpack_bytes - before[1],
+            runner.staged_runs - before[2]) == (1, 2 * 16 * 400_004, 1)
     xb = x.to(gpu).view(torch.uint8)
     assert all(torch.equal(out[v].view(torch.uint8), xb) for v in range(16))
     assert ex.verify(x).ok

@@ -21,7 +21,11 @@ It reports, as one JSON line on stdout (and in ``--out``):
   ``ExecutablePlan.run`` up to its return (before the synchronize), the
   window's growth of ``runner.unpack_launches`` and
   ``runner.unpack_bytes`` (the ``unpack_rows`` kernel's launches, and the
-  bytes they read and wrote), and by shape the share of K1's
+  bytes they read and wrote), of ``runner.inplace_runs`` and
+  ``runner.staged_runs`` (the requests K1 ran in place, writing into the
+  stacked output, and through the staging buffer), by shape the bytes
+  ``unpack_rows`` moved a request (``unpack_bytes_by_shape``: in place
+  only the tails), and by shape the share of K1's
   ``round_step.moved_bytes`` that moves reading or writing a relay row
   moved (``round_step.relay_bytes``; ``k1_relay_pct``);
 * ``traced``: each device operation of the traced windows joined to the
@@ -32,9 +36,10 @@ It reports, as one JSON line on stdout (and in ``--out``):
   (split by overlap), K1's ``round_step.moved_bytes`` against the least
   bytes (``bcastbench.roofline``) and against the plans' own count, with
   ``round_step.relay_bytes`` beside it, ``runner.unpack``'s share of the
-  HBM peak on the bytes ``unpack_rows`` moves, by shape
-  (``unpack_hbm_pct``), and the readings the benchmark takes by kernel
-  name beside them;
+  HBM peak on the bytes ``unpack_rows`` moved, by shape
+  (``unpack_hbm_pct``, with the window's in-place and staged counts and
+  ``unpack_bytes_by_shape`` beside it), and the readings the benchmark
+  takes by kernel name beside them;
 * ``span_ns``: the host cost of one span, off and on.
 
 Times come from the profiler's clock. ``bcastbench.devtrace.Tracer`` ties
@@ -374,7 +379,8 @@ def serve(st: dict, seed: int, seconds: float, device: torch.device
     deadline = time.perf_counter() + seconds
     for req in gen.stream(mix, seed, n, esize):
         ex = st["exes"][(req.root, req.nbytes)]
-        k1 = (round_step.moved_bytes, round_step.relay_bytes)
+        k1 = (round_step.moved_bytes, round_step.relay_bytes,
+              runner.unpack_bytes)
         t0 = time.perf_counter()
         y = ex.run(st["pool"][req.nbytes][req.slot])
         t_ret = time.perf_counter()
@@ -385,7 +391,8 @@ def serve(st: dict, seed: int, seconds: float, device: torch.device
         out.append({"root": req.root, "nbytes": req.nbytes, "t0": t0,
                     "t_ret": t_ret, "t1": t1,
                     "moved": round_step.moved_bytes - k1[0],
-                    "relay": round_step.relay_bytes - k1[1]})
+                    "relay": round_step.relay_bytes - k1[1],
+                    "unpack": runner.unpack_bytes - k1[2]})
         if t1 >= deadline and (req.index + 1) % block == 0:
             return out
     return out
@@ -431,17 +438,29 @@ def relay_pct(served: List[dict]) -> Dict[str, float]:
     return {k: 100.0 * relay[k] / v for k, v in moved.items() if v}
 
 
-def unpack_hbm_pct(per_shape: Dict[str, Dict[str, float]], n: int
-                   ) -> Dict[str, float]:
-    """By shape ``root/nbytes``: the bytes ``unpack_rows`` reads and
-    writes (2 x n x nbytes) at the HBM peak over ``runner.unpack``'s device
-    ms a request, %."""
+def unpack_by_shape(served: List[dict]) -> Dict[str, float]:
+    """By shape ``root/nbytes``: the bytes ``unpack_rows`` read and wrote a
+    request, from ``runner.unpack_bytes``' growth in each."""
+    moved: Dict[str, int] = collections.Counter()
+    count: Dict[str, int] = collections.Counter()
+    for r in served:
+        shape = f"{r['root']}/{r['nbytes']}"
+        moved[shape] += r["unpack"]
+        count[shape] += 1
+    return {k: moved[k] / count[k] for k in count}
+
+
+def unpack_hbm_pct(per_shape: Dict[str, Dict[str, float]],
+                   moved: Dict[str, float]) -> Dict[str, float]:
+    """By shape ``root/nbytes``: the bytes ``unpack_rows`` read and wrote a
+    request (``moved``, from ``unpack_by_shape``) at the HBM peak over
+    ``runner.unpack``'s device ms a request, %."""
     out = {}
     for shape, ms in per_shape.items():
         dev_s = ms["runner.unpack"] / 1e3
-        nbytes = int(shape.split("/")[1])
-        if dev_s > 0:
-            out[shape] = 100.0 * roofline.least_seconds(2 * n * nbytes) / dev_s
+        total = moved.get(shape, 0)
+        if dev_s > 0 and total:
+            out[shape] = 100.0 * roofline.least_seconds(total) / dev_s
     return out
 
 
@@ -464,7 +483,8 @@ def measure(cell, seed: int, seconds: float, device: torch.device) -> dict:
         if mode == "traced" and device.type == "cuda":
             tracer = LaunchTracer(device)
             tracer.start()
-        unpack0 = (runner.unpack_launches, runner.unpack_bytes)
+        unpack0 = (runner.unpack_launches, runner.unpack_bytes,
+                   runner.inplace_runs, runner.staged_runs)
         served = serve(st, seed + i, seconds, device)
         moved = sum(r["moved"] for r in served)
         dev = tracer.stop() if tracer else None
@@ -472,6 +492,9 @@ def measure(cell, seed: int, seconds: float, device: torch.device) -> dict:
         row = dict(mode=mode, **summary(served),
                    unpack_launches=runner.unpack_launches - unpack0[0],
                    unpack_bytes=runner.unpack_bytes - unpack0[1],
+                   inplace_runs=runner.inplace_runs - unpack0[2],
+                   staged_runs=runner.staged_runs - unpack0[3],
+                   unpack_bytes_by_shape=unpack_by_shape(served),
                    k1_relay_pct=relay_pct(served))
         windows.append(row)
         log(f"[window {i}] {json.dumps(row)}")
@@ -496,7 +519,10 @@ def measure(cell, seed: int, seconds: float, device: torch.device) -> dict:
             if k1 else None,
             k1_hbm_pct=100.0 * roofline.least_seconds(moved) / k1
             if k1 else None,
-            unpack_hbm_pct=unpack_hbm_pct(got["per_shape_dev_ms"], st["n"]))
+            unpack_hbm_pct=unpack_hbm_pct(got["per_shape_dev_ms"],
+                                          row["unpack_bytes_by_shape"]),
+            inplace_runs=row["inplace_runs"], staged_runs=row["staged_runs"],
+            unpack_bytes_by_shape=row["unpack_bytes_by_shape"])
         traced.append(got)
         log(f"[traced {i}] {json.dumps(got)}")
     return {"cell": cell.name, "seed": seed, "seconds": seconds,
