@@ -1,7 +1,7 @@
 """The ``butterfly-256.large`` cell: found by name with its configuration
 and mix, its fabric planned on the CPU as the two-tree plan with relay rows
-that the cell runs, and its six per-layer readers reading what the
-``.large`` cells' readers read."""
+that the cell runs, and the six per-layer metrics of the ``.large`` cells
+read in it under their own names."""
 
 import dataclasses
 
@@ -13,13 +13,10 @@ from bcastbench.harness import RunRecord, Served
 from conftest import ROOT
 
 CELL = "butterfly-256.large"
-# each ``.relay`` reader and the reader of the ``.large`` cells it loads
-READERS = {"k1_us_per_subround": "k1_us_per_subround.large",
-           "k1_roofline": "k1_roofline.large",
-           "runner_dev_ms": "runner_dev_ms.large",
-           "plan_setup_s": "plan_setup_s",
-           "bcast_roofline": "bcast_roofline.large",
-           "device_idle_pct": "device_idle_pct.large"}
+# the per-layer metrics every ``.large`` cell reports, this one too
+READERS = ["k1_us_per_subround.large", "k1_roofline.large",
+           "runner_dev_ms.large", "plan_setup_s", "bcast_roofline.large",
+           "device_idle_pct.large"]
 
 
 @pytest.fixture(scope="module")
@@ -35,10 +32,11 @@ def test_the_cell_is_found_with_its_config_and_mix(cell):
     assert cell.config["reduced"] == {}
     assert cell.mix["roots"] == [0, 17]
     assert cell.mix["sizes"] == [4000000, 16000000, 64000000, 128000000]
-    assert sorted(m["name"] for m in cell.per_layer) == sorted(
-        f"{r}.relay" for r in READERS)
+    assert sorted(m["name"] for m in cell.per_layer) == sorted(READERS)
+    assert cell.per_layer == manifest.find_cell(
+        "mesh2d-256.large", root=ROOT).per_layer
     assert {m["name"] for m in cell.end_to_end} == {
-        "setup_s", "bcast_p50_ms", "bcast_p95_ms", "payload_rate"}
+        "setup_s", "bcast_shape_p50_ms", "bcast_p95_ms", "payload_rate"}
 
 
 def test_the_fabric_plans_two_trees_with_relay_rows(cell):
@@ -78,13 +76,12 @@ def _record():
 
 
 @pytest.mark.parametrize("name", READERS)
-def test_the_relay_readers_read_the_large_ones(cell, name):
-    """Each reads what its ``.large`` reader reads, and nothing where that
-    one finds nothing to read: no set-up phases, trace or window."""
+def test_the_large_readers_read_in_the_cell(cell, name):
+    """Each reads the butterfly's record, and nothing where it finds
+    nothing to read: no set-up phases, trace or window."""
     rec = _record()
-    got = cell.reader(f"{name}.relay").read(rec)
+    got = cell.reader(name).read(rec)
     assert got is not None and got > 0
-    assert got == cell.reader(READERS[name]).read(rec)
     bare = dataclasses.replace(rec, setup_phases={}, k1={}, trace=None,
                                window_s=0.0)
-    assert cell.reader(f"{name}.relay").read(bare) is None
+    assert cell.reader(name).read(bare) is None

@@ -28,7 +28,7 @@ def test_a_sound_run_is_correct(tiny, cell):
     assert result["correct"], checks
     assert result["attempted"] >= 1 and result["failed"] == 0
     assert checks["unchecked_shapes"] == [0, 0]
-    assert set(result["metrics"]) == {"setup_s", "bcast_p50_ms",
+    assert set(result["metrics"]) == {"setup_s", "bcast_shape_p50_ms",
                                       "bcast_p95_ms", "payload_rate"}
     assert all(v["value"] > 0 for v in result["metrics"].values())
 
