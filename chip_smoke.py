@@ -10,8 +10,8 @@ Phases, each of which exits non-zero on failure:
    in one persistent launch), ``permute_step`` (K1's one-sub-round kernel,
    the yardstick), ``unpack_rows`` (UR, the runner's copy out, and in the
    same library ``fill_inplace``, the in-place layout's start),
-   ``flash_attention`` (K2), ``ssd_scan`` (K3),
-   ``event_core`` and ``event_core_scan`` (EC and its yardstick); print
+   ``flash_attention`` (K2), ``ssd_scan`` (K3) and
+   ``event_core`` (EC); print
    ptxas's registers and spills, and each K2, K3 and EC instance's shared
    memory (K2: bf16 tensor-core and float32 FMA kernels, five head dims
    each, bf16 D 112 on the D 128 tile; K3: ``ssd_tc<dh, ds>`` for bf16,
@@ -73,15 +73,15 @@ Phases, each of which exits non-zero on failure:
    one grid-sweep row, mesh2d 32 x 32 srda at 12 sizes (11,263 tasks a
    lane), in one ``run_lowered_batch`` launch against 12 per-size numpy
    runs; mesh2d 64 x 64 glf and bine at 64e6 (the sweep's widest resource
-   rows) and srda (its largest list, 53,247 tasks), and no launch of the
-   scan kernel; then the kernel bit-exact against ``event_core_ref`` on the
-   card (mesh2d 16 x 16 srda, 12 lanes), bit-equal to the scan kernel it
-   replaced (``csrc/event_core_scan.cu``) on every timed shape, each
-   shape's time of both (CUDA events, in turns: scan, new, new, scan), the
-   new one's in both memory variants, time a step, the compaction's
-   time, the numpy engine's time on the same lists and the bytes bound;
-   and the step floor of the design: the kernel on a chain of tasks, one
-   private resource each;
+   rows) and srda (its largest list, 53,247 tasks); then on those shapes
+   and on mesh2d 16 x 16 srda in 12 lanes the kernel's results, in both
+   memory variants where the shared one fits, bit-exact against
+   ``event_core_ref`` on the card where that takes under about 30 s, else
+   the global variant against the shared one; each shape's time (CUDA
+   events) in each variant, time a step, the compaction's time, the numpy
+   engine's time on the same lists and the bytes bound; and the step floor
+   of the design: the kernel on a chain of tasks, one private resource
+   each;
 8. the distributed executor (``repro_torch.device.distributed``) over
    ``min(8, device_count)`` NCCL ranks, one GPU each, bit for bit against
    the virtual mesh, when the machine has two GPUs or more; then, across
@@ -356,7 +356,7 @@ def phase_build(FA, K):
     from repro_torch import nvcc
     t0 = time.perf_counter()
     names = ["permute_rounds", "permute_step", "unpack_rows",
-             "flash_attention", "ssd_scan", "event_core", "event_core_scan"]
+             "flash_attention", "ssd_scan", "event_core"]
     nvcc.build(names)
     log(f"[build] {', '.join(names)} built in "
         f"{time.perf_counter() - t0:.3f} s")
@@ -366,8 +366,7 @@ def phase_build(FA, K):
     for src, kernel in (("permute_rounds", "permute_rounds"),
                         ("permute_step", "permute_step"),
                         ("unpack_rows", "unpack_rows_kernel"),
-                        ("unpack_rows", "fill_inplace_kernel"),
-                        ("event_core_scan", "event_core_scan")):
+                        ("unpack_rows", "fill_inplace_kernel")):
         (_, r, st, ld, _), = ptxas_kernels(nvcc.build_log(src), kernel)
         log(f"[build]   {src} {kernel}: {r} registers, spill stores {st} B, "
             f"spill loads {ld} B")
@@ -644,9 +643,8 @@ def phase_main(torch, rs, api, T):
         rs.launches
     unpacks = runner.unpack_launches
     out = ex.run(x)
-    lay = runner.packet_layout(x, s, ex.num_groups)
-    plc = runner.place(ex.moves(), lay, MAIN_NBYTES, ex.root,
-                       ex.placements())
+    plc = ex.lowered.placement(x)
+    lay = plc.lay
     if not plc.inplace or runner.inplace_runs != 2:
         fail(f"main path took the in-place layout {runner.inplace_runs} "
              f"times in 2 broadcasts (in place: {plc.inplace})")
@@ -803,7 +801,9 @@ def phase_timing(np, torch, rs, runner, ex, x, lay, plc, rate, secs):
         seen_r |= r
         seen_w |= w
 
-    alloc = runner.pack_inplace(x, plc, ex.root, dev)
+    low = ex.lowered
+    with low.launching() as stream:
+        alloc = low.start(x, plc, stream)
     idle = moves.idle()
     idle_at = dataclasses.replace(plc.at, pairs=plc.at.pairs[:0])
     barrier_ms = min(cuda_ms(lambda: rs.permute_rounds(alloc, idle,
@@ -1165,6 +1165,9 @@ EC_NAMES = ("binomial", "flat", "pipeline", "srda", "glf", "bine",
 EC_MATRIX_SIZES = (4e4, 64e6)
 EC_SWEEP_LANES = 12       # np.geomspace(1e5, 1e9, 12)
 EC_FLOOR_TASKS = (4096, 16384)   # the step floor's chains
+EC_REF_S = 45.0           # event_core_ref's longest predicted run on a shape:
+# room for the sweep row (23-31 s predicted on a fast or a slow host), not
+# for 64 x 64 srda (110-145 s)
 DIST_NBYTES = 16 << 20
 
 
@@ -1208,15 +1211,18 @@ def phase_eventcore(np, torch, rate):
     srda at 12 sizes) in one ``run_lowered_batch`` launch against 12
     per-size numpy runs; the sweep's widest resource rows (mesh2d 64 x 64
     glf and bine at 64e6) and its largest list (64 x 64 srda). Then,
-    outside the main path's count: the kernel against ``event_core_ref`` on
-    the card (mesh2d 16 x 16 srda, 12 lanes); on each shape the kernel
-    bit-equal to the scan kernel it replaced (``event_core_scan``), both
-    timed in turns (scan, new, new, scan; CUDA events), the new one also in
-    the global memory variant where the shared one fits, a step's time and
-    where it goes (``kernelsim.profile``), the compaction's time, the numpy
-    engine's time on the same lists (host clock) and the bytes bound,
-    which is not what limits a chain of 2n dependent steps; and the step
-    floor of this design, the kernel on a chain of tasks."""
+    outside the main path's count, on those shapes and on mesh2d 16 x 16
+    srda in 12 lanes: the kernel's ``(comp, seqs)`` in its memory variant,
+    and in the global one too where the shared one fits, bit for bit to
+    ``event_core_ref`` on the card wherever that is predicted to take under
+    ``EC_REF_S`` (its time a step on the 16 x 16 lanes, which it always
+    runs, times the shape's 2n steps), elsewhere the global variant to the
+    shared one (the numpy engine held the results above); each timed (CUDA
+    events), a step's time and where it goes (``kernelsim.profile``), the
+    compaction's time, the numpy engine's time on the same lists (host
+    clock) and the bytes bound, which is not what limits a chain of 2n
+    dependent steps; and the step floor of this design, the kernel on a
+    chain of tasks."""
     from repro_torch.core import kernelsim as KS
     from repro_torch.core import topology as T
     from repro_torch.core.baselines import lower_baseline, simulate_baseline
@@ -1236,7 +1242,7 @@ def phase_eventcore(np, torch, rate):
             models[key] = (topo, ConflictModel(topo, mode))
         return models[key]
 
-    KS.launches = KS.scan_launches = 0
+    KS.launches = 0
     cases = core_lists = 0
     for tname, kind, args, mode in EC_TOPOS:
         topo, cm = model(kind, args, mode)
@@ -1303,23 +1309,30 @@ def phase_eventcore(np, torch, rate):
         log(f"[eventcore] mesh2d 64x64 {name} at 64e6: {c.n} tasks, "
             f"resource rows {max(len(r) for r in c.res_ids)} wide, equal "
             f"to the numpy engine")
-    launches, scan_launches = KS.launches, KS.scan_launches
-    if scan_launches:
-        fail(f"[eventcore] the main path launched event_core_scan "
-             f"{KS.scan_launches} times")
+    launches = KS.launches
 
-    # the kernel against the plain version on the card
+    # the kernel against the plain version on the card: the 16 x 16 lanes
+    # first, whose time a step predicts the plain version's on the others
     topo, cm = model("mesh2d", (16, 16))
     c16, d16, _ = KS.lower_baseline_lanes(topo, cm, "srda", 0, sizes)
-    shapes["plain"] = (topo, cm, c16, d16, [
-        lower_baseline(topo, cm, "srda", 0, s) for s in sizes])
-    out = {}
+    shapes = {"plain": (topo, cm, c16, d16, [
+        lower_baseline(topo, cm, "srda", 0, s) for s in sizes]), **shapes}
+    out, ref_s_per_step = {}, None
     for key, (topo, cm, c, d, ctls) in shapes.items():
         c.bind(cm.compiled())
         stat = [torch.from_numpy(a).cuda() for a in
                 KS._static_arrays(c, cm.compiled())]
         dt = torch.from_numpy(np.ascontiguousarray(d)).cuda()
-        row = eventcore_times(torch, KS, stat, dt, rate, key)
+        want, plain_ms = None, None
+        if key == "plain" or ref_s_per_step * 2 * c.n < EC_REF_S:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            want = KS.event_core_ref(*stat, dt)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t1) * 1e3
+            ref_s_per_step = ref_s_per_step or plain_ms / 2e3 / c.n
+        row = eventcore_times(torch, KS, stat, dt, rate, key, want)
+        row["plain_ms"] = plain_ms
         if key in numpy_ms:
             row["numpy_ms"] = numpy_ms[key]
         else:
@@ -1328,36 +1341,25 @@ def phase_eventcore(np, torch, rate):
             for one in ctls:
                 nsim.run_lowered(one)
             row["numpy_ms"] = (time.perf_counter() - t1) * 1e3
-        if key == "plain":
-            got = KS.event_core(*stat, dt)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            want = KS.event_core_ref(*stat, dt)
-            torch.cuda.synchronize()
-            row["plain_ms"] = (time.perf_counter() - t1) * 1e3
-            row["mismatches"] = int((got[0] != want[0]).sum()) + \
-                int((got[1] != want[1]).sum())
-            row["max_abs_err"] = float((got[0] - want[0]).abs().nan_to_num(
-                0.0).max())
-            if row["mismatches"] or not torch.equal(got[0], want[0]):
-                fail(f"[eventcore] the kernel differs from event_core_ref in "
-                     f"{row['mismatches']} elements (mesh2d 16x16 srda, "
-                     f"{d.shape[0]} lanes)")
-            log(f"[eventcore] kernel bit-exact against event_core_ref on "
-                f"the card: mesh2d 16x16 srda, {d.shape[0]} lanes of "
-                f"{c.n} tasks (plain {row['plain_ms']!r} ms once)")
         out[key] = row
         log(f"[eventcore] {key}: {c.n} tasks x {d.shape[0]} lanes (K "
             f"{row['K']}, D {row['D']}, {row['W']} resources, {row['kept']} "
             f"kept; {row['entries']} row entries kept of "
             f"{row['padded_entries']}; {row['memory']} memory, "
-            f"{row['smem']} B dynamic shared memory): kernel {row['ms']!r} "
-            f"ms ({row['us_per_step']!r} us a step of {row['steps']}; by "
-            f"memory variant {row['variants_ms']}), scan kernel "
-            f"{row['scan_ms']!r} ms ({row['scan_us_per_step']!r} us a "
-            f"step), bit-equal; compaction {row['prep_ms']!r} ms; numpy "
-            f"engine {row['numpy_ms']!r} ms on the same lists; bytes bound "
-            f"{row['bound_ms']!r} ms (not what limits 2n dependent steps)")
+            f"{row['smem']} B dynamic shared memory): " + (
+                f"bit-equal to {row['held_to']} in the variants "
+                f"{row['held']}" if row['held_to'] == "event_core_ref" else
+                f"held to the numpy engine earlier in the phase" + (
+                    f", the variants {row['held']} bit-equal to the "
+                    f"{row['memory']} one" if row['held'] else
+                    ", one variant, nothing to compare on the card")) +
+            f" (plain {plain_ms!r} ms once); "
+            f"kernel {row['ms']!r} ms "
+            f"({row['us_per_step']!r} us a step of {row['steps']}; by memory "
+            f"variant {row['variants_ms']}); compaction {row['prep_ms']!r} "
+            f"ms; numpy engine {row['numpy_ms']!r} ms on the same lists; "
+            f"bytes bound {row['bound_ms']!r} ms (not what limits 2n "
+            f"dependent steps)")
 
     floor = {}
     for n in EC_FLOOR_TASKS:
@@ -1379,7 +1381,7 @@ def phase_eventcore(np, torch, rate):
     out["floor"] = floor
     out["floor_us_per_step"] = min(f["us_per_step"] for f in floor.values())
     out["matrix_lists"], out["matrix_core_lists"] = cases, core_lists
-    out["launches"], out["scan_launches"] = launches, scan_launches
+    out["launches"] = launches
     out["phase_s"] = time.perf_counter() - t0
     log(f"[eventcore] phase time {out['phase_s']:.3f} s")
     return out
@@ -1400,39 +1402,46 @@ def eventcore_profile(KS, st, dt, key):
     return dict(cycles_per_step=cyc, counts_per_task=cnt)
 
 
-def eventcore_times(torch, KS, stat, dt, rate, key):
-    """The event core on one shape: the new kernel against the scan kernel,
-    bit for bit, each timed in turns (scan, new, new, scan; CUDA events,
-    one call a turn after a warm-up of each), the new one also in the global
-    memory variant where the shared one fits; the compaction's time; the
-    bytes bound."""
+def eventcore_times(torch, KS, stat, dt, rate, key, want=None):
+    """The event core on one shape: the kernel's ``(comp, seqs)`` in its
+    memory variant, and in the global one too where the shared one fits,
+    bit for bit to ``want`` (``event_core_ref``'s) where given, else the
+    global variant to the shared one where both run (``held`` lists the
+    variants compared; with one variant and no ``want`` the numpy engine
+    held the shape earlier in the phase); each variant timed (CUDA events, the
+    least of two after a warm-up); the compaction's time; the bytes
+    bound."""
     L, n = dt.shape
     st = KS.compact_structure(*stat)
     torch.cuda.synchronize()
     prep_ms = min(cuda_ms(lambda: KS.compact_structure(*stat))
                   for _ in range(3))
-    new = KS.launch(st, dt)
-    scan = KS.event_core_scan(*stat, dt)
-    scan_err = float((new[0] - scan[0]).abs().nan_to_num(0.0).max())
-    if not (torch.equal(new[0], scan[0]) and torch.equal(new[1], scan[1])):
-        fail(f"[eventcore] {key}: the kernel differs from event_core_scan "
-             f"(largest difference {scan_err!r})")
-    turns = [cuda_ms(lambda: KS.event_core_scan(*stat, dt)),
-             cuda_ms(lambda: KS.launch(st, dt)),
-             cuda_ms(lambda: KS.launch(st, dt)),
-             cuda_ms(lambda: KS.event_core_scan(*stat, dt))]
     memory = KS.variant(n, st.caps.numel())
-    variants_ms = {memory: min(turns[1:3])}
-    if memory == "shared":
-        got = KS.launch(st, dt, memory="global")
-        if not (torch.equal(got[0], scan[0]) and torch.equal(got[1],
-                                                             scan[1])):
-            fail(f"[eventcore] {key}: the global variant differs from "
-                 f"event_core_scan")
-        variants_ms["global"] = cuda_ms(lambda: KS.launch(st, dt,
-                                                          memory="global"))
+    variants = (memory, "global") if memory == "shared" else (memory,)
+    held_to = "event_core_ref" if want is not None else "numpy engine"
+    against = held_to if want is not None else f"the {memory} variant"
+    base = None                      # the variant ``want`` came from
+    if want is None and len(variants) > 1:
+        want, base = KS.launch(st, dt, memory=memory), memory
+    mismatches, max_abs_err = 0, 0.0
+    variants_ms, held = {}, []
+    for mem in variants:
+        if want is not None and mem != base:
+            got = KS.launch(st, dt, memory=mem)
+            mismatches += int((got[0] != want[0]).sum()) + \
+                int((got[1] != want[1]).sum())
+            max_abs_err = max(max_abs_err, float(
+                (got[0] - want[0]).abs().nan_to_num(0.0).max()))
+            if not (torch.equal(got[0], want[0]) and
+                    torch.equal(got[1], want[1])):
+                fail(f"[eventcore] {key}: the {mem} variant differs from "
+                     f"{against} in {mismatches} elements (largest "
+                     f"difference {max_abs_err!r})")
+            held.append(mem)
+        variants_ms[mem] = min(cuda_ms(lambda: KS.launch(st, dt, memory=mem))
+                               for _ in range(2))
     lib = KS._kernel()
-    ms, scan_ms = min(turns[1:3]), min(turns[0], turns[3])
+    ms = variants_ms[memory]
     prof = eventcore_profile(KS, st, dt, key)
     return dict(tasks=n, lanes=L, steps=2 * n, K=stat[1].shape[1],
                 D=stat[3].shape[1], W=stat[2].shape[0],
@@ -1440,11 +1449,10 @@ def eventcore_times(torch, KS, stat, dt, rate, key):
                 padded_entries=stat[1].numel(), memory=memory,
                 smem=lib.event_core_shared_bytes(
                     n, st.caps.numel(), int(memory == "shared")),
-                ms=ms, us_per_step=ms * 1e3 / (2 * n), turns_ms=turns,
-                scan_ms=scan_ms, scan_us_per_step=scan_ms * 1e3 / (2 * n),
-                variants_ms=variants_ms, prep_ms=prep_ms, scan_err=scan_err,
-                profile=prof,
-                bound_ms=event_core_bytes(st, L) / rate * 1e3)
+                ms=ms, us_per_step=ms * 1e3 / (2 * n), held_to=held_to,
+                mismatches=mismatches, max_abs_err=max_abs_err,
+                held=held, variants_ms=variants_ms, prep_ms=prep_ms,
+                profile=prof, bound_ms=event_core_bytes(st, L) / rate * 1e3)
 
 
 def distributed_rank(rank, world, backend, device, store, out):
@@ -2588,16 +2596,16 @@ def phase_family(torch, FA, K, KS, rs, ref, ops, serve, cfg, LM,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     FA.launches = K.launches = rs.launches = rs.rounds_launches = 0
-    KS.launches = KS.scan_launches = 0
+    KS.launches = 0
     logits, cache = model.prefill(batch, cache)
     torch.cuda.synchronize()
     got = (FA.launches, K.launches, rs.launches, rs.rounds_launches,
-           KS.launches, KS.scan_launches)
+           KS.launches)
     peak = torch.cuda.max_memory_allocated()
-    if got != (k2, k3, 0, 0, 0, 0):
+    if got != (k2, k3, 0, 0, 0):
         fail(f"{tag} prefill launched flash_attention, ssd_scan, "
-             f"permute_step, permute_rounds, event_core and event_core_scan "
-             f"{got} times, expected {(k2, k3, 0, 0, 0, 0)}")
+             f"permute_step, permute_rounds and event_core {got} times, "
+             f"expected {(k2, k3, 0, 0, 0)}")
     want_shape = (b, n, cfg.padded_vocab)
     if tuple(logits.shape) != want_shape:
         fail(f"{tag} prefill logits {tuple(logits.shape)}, expected "
@@ -2734,17 +2742,16 @@ GRAD_SSD = (("mamba2-370m prefill", SSD_MAIN[:5], None),
 
 
 def counts(FA, K, rs, KS):
-    """The launch counters of K2, K3, K1 (both kernels), EC (both) and
-    UR."""
+    """The launch counters of K2, K3, K1 (both kernels), EC and UR."""
     from repro_torch.device import runner
     return (FA.launches, K.launches, rs.launches, rs.rounds_launches,
-            KS.launches, KS.scan_launches, runner.unpack_launches)
+            KS.launches, runner.unpack_launches)
 
 
 def reset_counts(FA, K, rs, KS):
     from repro_torch.device import runner
     FA.launches = K.launches = rs.launches = rs.rounds_launches = 0
-    KS.launches = KS.scan_launches = runner.unpack_launches = 0
+    KS.launches = runner.unpack_launches = 0
 
 
 def grad_vs_plain(torch, fn, plain, inputs, what, counter):
@@ -2842,9 +2849,9 @@ def phase_train_loss(torch, FA, K, rs, KS, ref, ops, cfg, LM,
     loss_k32, g_k32 = grads_of(torch, value_and_grad, f32, batch)
     got = counts(FA, K, rs, KS)
     want = (launches, 0) if kind == "K2" else (0, launches)
-    if got != want + (0, 0, 0, 0, 0):
+    if got != want + (0, 0, 0, 0):
         fail(f"[train] {tag} float32 loss launched K2, K3, K1, EC and UR "
-             f"{got} times, expected {want + (0, 0, 0, 0, 0)}")
+             f"{got} times, expected {want + (0, 0, 0, 0)}")
     worst32 = 0.0
     for k, g in g_k32.items():
         ref_max = float(g_p32[k].abs().max())
@@ -2870,7 +2877,7 @@ def phase_train_loss(torch, FA, K, rs, KS, ref, ops, cfg, LM,
     del g_p16
     reset_counts(FA, K, rs, KS)
     loss_k16, g_k16 = grads_of(torch, value_and_grad, model, batch)
-    if counts(FA, K, rs, KS) != want + (0, 0, 0, 0, 0):
+    if counts(FA, K, rs, KS) != want + (0, 0, 0, 0):
         fail(f"[train] {tag} bf16 loss launched K2, K3, K1, EC and UR "
              f"{counts(FA, K, rs, KS)} times")
     worst = 0.0
@@ -2980,10 +2987,10 @@ def phase_train_llama(torch, FA, K, rs, KS, G, steps, cfg, LM,
         losses.append(float(met["loss"]))
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
-        if counts(FA, K, rs, KS) != (cfg.layers, 0, 0, 0, 0, 0, 0):
+        if counts(FA, K, rs, KS) != (cfg.layers, 0, 0, 0, 0, 0):
             fail(f"[train] {tag} step {i} launched K2, K3, K1, EC and UR "
                  f"{counts(FA, K, rs, KS)} times, expected "
-                 f"{(cfg.layers, 0, 0, 0, 0, 0, 0)}")
+                 f"{(cfg.layers, 0, 0, 0, 0, 0)}")
     peak = torch.cuda.max_memory_allocated()
     if not all(math.isfinite(x) for x in losses) or \
             not losses[-1] < losses[0]:
@@ -3056,7 +3063,7 @@ def phase_train_cli(torch, FA, K, rs, KS, steps, store, train, sup_mod,
         secs = time.perf_counter() - t0
         got = counts(FA, K, rs, KS)
         hist = state["history"]
-        want = (0, cfg.layers * CLI_STEPS, 0, 0, 0, 0, 0)
+        want = (0, cfg.layers * CLI_STEPS, 0, 0, 0, 0)
         if got != want or len(hist) != CLI_STEPS:
             fail(f"[train] {tag} CLI: {len(hist)} steps launched K2, K3, K1, "
                  f"EC and UR {got} times, expected {CLI_STEPS} and {want}")
@@ -3318,9 +3325,9 @@ def phase_sharded(torch, layers, backend="nccl", device="cuda", count=None,
     res = spawn_ranks(sharded_rank, 1, (1, backend, device, *kw.values()),
                       "sharded")
     sh, pl = res["sharded"], res["plain"]
-    want = [layers, 0, 0, 0, 0, 0, 0]
+    want = [layers, 0, 0, 0, 0, 0]
     if any(n != want for n in sh["launches"]):
-        fail(f"[sharded] launches (K2, K3, K1 x2, EC x2, UR) a step "
+        fail(f"[sharded] launches (K2, K3, K1 x2, EC, UR) a step "
              f"{sh['launches']}, expected {want} each step")
     for k in ("loss", "grad_norm"):
         if sh[k] != pl[k]:
@@ -3511,16 +3518,16 @@ def main():
     sw, pl = ec["sweep"], ec["plain"]
     log(f"[summary] {name}: event core {ec['launches']} launches on the "
         f"main path; mesh2d 32x32 srda x {sw['lanes']} lanes "
-        f"{sw['ms']!r} ms in one launch ({sw['us_per_step']!r} us a step; "
-        f"scan kernel {sw['scan_ms']!r} ms) against {sw['numpy_ms']!r} ms "
-        f"for the numpy engine; mesh2d 16x16 srda x {pl['lanes']} lanes "
-        f"{pl['ms']!r} ms (scan {pl['scan_ms']!r} ms, plain "
+        f"{sw['ms']!r} ms in one launch ({sw['us_per_step']!r} us a step) "
+        f"against {sw['numpy_ms']!r} ms for the numpy engine; mesh2d 16x16 "
+        f"srda x {pl['lanes']} lanes {pl['ms']!r} ms (plain "
         f"{pl['plain_ms']!r} ms, numpy {pl['numpy_ms']!r} ms); 64x64 glf "
-        f"{ec['glf']['ms']!r} ms (scan {ec['glf']['scan_ms']!r}), bine "
-        f"{ec['bine']['ms']!r} ms (scan {ec['bine']['scan_ms']!r}, numpy "
-        f"{ec['bine']['numpy_ms']!r}), srda {ec['srda']['ms']!r} ms (scan "
-        f"{ec['srda']['scan_ms']!r}, numpy {ec['srda']['numpy_ms']!r}); "
-        f"step floor {ec['floor_us_per_step']!r} us")
+        f"{ec['glf']['ms']!r} ms, bine {ec['bine']['ms']!r} ms (numpy "
+        f"{ec['bine']['numpy_ms']!r}), srda {ec['srda']['ms']!r} ms (numpy "
+        f"{ec['srda']['numpy_ms']!r}); held to " + ", ".join(
+            f"{k} {ec[k]['held_to']}" for k in ("plain", "sweep", "glf",
+                                                "bine", "srda")) +
+        f"; step floor {ec['floor_us_per_step']!r} us")
     dist_res = phase_distributed(torch)
 
     ssd_err = phase_ssd_vs_plain(torch, K, ref)
@@ -3725,8 +3732,8 @@ def main():
                     "(kernels/grad.py KernelGrad)",
         "zamba2": st["zamba2"],
     }, {
-        # ms, scan_ms, plain_ms, numpy_ms and bound_ms at the lanes held
-        # against the plain version (mesh2d 16 x 16 srda, 12 sizes);
+        # ms, plain_ms, numpy_ms and bound_ms at the lanes held against
+        # the plain version (mesh2d 16 x 16 srda, 12 sizes);
         # "sweep" (mesh2d 32 x 32 srda, 12 sizes), "glf", "bine" and "srda"
         # (mesh2d 64 x 64, one lane) the other shapes of the main path;
         # floor_us_per_step the design's step on a chain of tasks
@@ -3735,31 +3742,17 @@ def main():
         "replaces": "src/repro/core/kernelsim.py:121",
         "launches": ec["launches"], "mismatches": pl["mismatches"],
         "max_abs_err": pl["max_abs_err"],
-        "ms": pl["ms"], "scan_ms": pl["scan_ms"], "plain_ms": pl["plain_ms"],
+        "ms": pl["ms"], "plain_ms": pl["plain_ms"],
         "numpy_ms": pl["numpy_ms"], "bound_ms": pl["bound_ms"],
         "bound_by": "bytes", "limited_by": "latency of 2n dependent steps",
         "library_ms": None, "steps": pl["steps"], "lanes": pl["lanes"],
         "tasks": pl["tasks"],
         "floor_us_per_step": ec["floor_us_per_step"],
         **{key: {k: ec[key][k] for k in (
-            "tasks", "lanes", "steps", "ms", "us_per_step", "scan_ms",
-            "scan_us_per_step", "variants_ms", "prep_ms", "memory", "numpy_ms",
+            "tasks", "lanes", "steps", "ms", "us_per_step", "variants_ms",
+            "prep_ms", "memory", "numpy_ms", "plain_ms", "held_to",
             "bound_ms")} for key in ("sweep", "glf", "bine", "srda")},
         **regs["event_core"],
-    }, {
-        # the scan design, the kernel's first form: the main path no longer
-        # launches it
-        # (launches 0); timed in turns with event_core on the same shapes
-        "name": "event_core_scan", "route": "cuda",
-        "source": "src/repro_torch/csrc/event_core_scan.cu",
-        "replaces": "src/repro/core/kernelsim.py:121",
-        "launches": ec["scan_launches"], "max_abs_err": pl["scan_err"],
-        "ms": pl["scan_ms"], "plain_ms": pl["plain_ms"],
-        "bound_ms": pl["bound_ms"], "bound_by": "bytes",
-        "library_ms": None,
-        **{key: ec[key]["scan_ms"] for key in ("sweep", "glf", "bine",
-                                                "srda")},
-        **regs["event_core_scan"],
     }]
     log(f"[summary] the whole run took {time.perf_counter() - t_start:.1f} s "
         f"after the imports")

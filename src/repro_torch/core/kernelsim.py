@@ -24,9 +24,7 @@ task) and one launch of the hand-written kernel ``csrc/event_core.cu``
 bitmap, parked waiters and a running list, so a step touches only what
 its effect changes); on CPU tensors the plain PyTorch version
 ``event_core_ref``; on any other device it raises. ``launches`` counts the
-kernel's launches. ``event_core_scan`` launches the scan design it
-replaced (``csrc/event_core_scan.cu``, each step a scan of all n tasks),
-kept as its yardstick and called by no path of the port.
+kernel's launches.
 
 Dispatch, as in the reference:
 
@@ -65,13 +63,12 @@ from repro_torch.core.topology import Topology
 
 launches = 0          # launches of csrc/event_core.cu since the last reset
 variant_launches = {"shared": 0, "global": 0}   # the same, by memory variant
-scan_launches = 0     # launches of csrc/event_core_scan.cu (the yardstick)
 
 # completions cannot tie on (time, seq): seq is unique, so this sentinel
 # only pads the masked argmins
 _BIG_SEQ = np.int32(2 ** 31 - 1)
 
-_lib = _scan_lib = None
+_lib = None
 
 
 def _jit_default(device) -> bool:
@@ -258,18 +255,6 @@ def _kernel():
     return _lib
 
 
-def _scan_kernel():
-    global _scan_lib
-    if _scan_lib is None:
-        from repro_torch.nvcc import load
-        lib = load("event_core_scan")
-        lib.event_core_scan.argtypes = [ctypes.c_void_p] * 5 + \
-            [ctypes.c_int] * 5 + [ctypes.c_void_p] * 6
-        lib.event_core_scan.restype = ctypes.c_int
-        _scan_lib = lib
-    return _scan_lib
-
-
 def _check(rank, res, caps, deps, durs) -> None:
     if durs.dtype != torch.float64 or durs.dim() != 2 or \
             not durs.is_contiguous():
@@ -410,44 +395,6 @@ def _run(lib, st: Compacted, durs: torch.Tensor, memory: Optional[str]):
         order = st.rank.long()
         return (comp.index_select(1, order),
                 seqs.index_select(1, order)), memory
-
-
-def event_core_scan(rank: torch.Tensor, res: torch.Tensor,
-                    caps: torch.Tensor, deps: torch.Tensor,
-                    durs: torch.Tensor,
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The scan design (``csrc/event_core_scan.cu``, the kernel's first
-    form, each step a scan of all n tasks) on CUDA tensors, arguments and
-    results as
-    ``event_core_ref``. The yardstick of ``launch``: no path of the port
-    calls it."""
-    global scan_launches
-    _check(rank, res, caps, deps, durs)
-    if durs.device.type != "cuda":
-        raise ValueError(f"event_core_scan runs on cuda, not {durs.device}")
-    L, n = durs.shape
-    dev = durs.device
-    comp = torch.empty((L, n), dtype=torch.float64, device=dev)
-    seqs = torch.empty((L, n), dtype=torch.int32, device=dev)
-    if L == 0 or n == 0:
-        return comp, seqs
-    K, D, W = res.shape[1], deps.shape[1], caps.shape[0]
-    status = torch.empty((L, n + 1), dtype=torch.int8, device=dev)
-    busy = torch.empty((L, W), dtype=torch.int32, device=dev)
-    fin = torch.empty((L, n), dtype=torch.float64, device=dev)
-    lib = _scan_kernel()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.event_core_scan(
-            rank.data_ptr(), res.data_ptr(), caps.data_ptr(),
-            deps.data_ptr(), durs.data_ptr(), n, K, D, W, L,
-            comp.data_ptr(), seqs.data_ptr(), status.data_ptr(),
-            busy.data_ptr(), fin.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"event_core_scan kernel launch failed: CUDA "
-                           f"error {rc}")
-    scan_launches += 1
-    return comp, seqs
 
 
 def _static_arrays(ctl: CompiledTaskList, idx) -> Tuple[np.ndarray, ...]:

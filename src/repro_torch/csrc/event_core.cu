@@ -11,8 +11,8 @@
 // resources are all below capacity (fin = now + dur, seq = ctr++, the row
 // added to the occupancy), or, when there is none, completes the task of
 // least (fin, seq, index) (now = comp = fin, the row subtracted), until n
-// completions. Only the way a step finds its task differs from the scan
-// design (csrc/event_core_scan.cu, kept as the yardstick):
+// completions. Rather than scanning all n tasks a step, a step finds its
+// task so:
 //
 //   ready set: a bitmap in shared memory, a bit a rank, set for a task
 //   that is unstarted, has every dependency done and is not parked, with a

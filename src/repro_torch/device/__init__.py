@@ -27,8 +27,8 @@ from repro_torch.device.executable import (DeviceDelivery, ExecutablePlan,
 from repro_torch.device.round_step import (Moves, compact_moves,
                                            permute_rounds, permute_rounds_ref,
                                            permute_step, permute_step_ref)
-from repro_torch.device.runner import (bbs_broadcast, binomial_broadcast,
-                                       build_moves, build_tables,
+from repro_torch.device.runner import (LoweredPlan, binomial_broadcast,
+                                       broadcast, build_moves, build_tables,
                                        chain_broadcast)
 from repro_torch.device.schedule import (DeviceSchedule, NotDeviceExecutable,
                                          make_device_schedule)
@@ -38,7 +38,8 @@ __all__ = [
     "measure_round", "predict_cycle_time", "prediction_report",
     "import_schedule", "DeviceDelivery", "ExecutablePlan", "build_executable",
     "Moves", "compact_moves", "permute_rounds", "permute_rounds_ref",
-    "permute_step", "permute_step_ref", "bbs_broadcast", "binomial_broadcast",
+    "permute_step", "permute_step_ref", "LoweredPlan", "broadcast",
+    "binomial_broadcast",
     "build_moves", "build_tables", "chain_broadcast", "DeviceSchedule",
     "NotDeviceExecutable", "make_device_schedule",
 ]

@@ -73,9 +73,9 @@ class DeviceDelivery:
 
 @dataclasses.dataclass
 class ExecutablePlan:
-    """Schedule tables + virtual-mesh runner for one (plan, root, nbytes).
-    Build through ``repro_torch.api`` ``executable()`` or
-    :func:`build_executable`."""
+    """A device schedule and its lowering for the virtual-mesh runner
+    (``lowered``) for one (plan, root, nbytes). Build through
+    ``repro_torch.api`` ``executable()`` or :func:`build_executable`."""
 
     topo: Topology
     cm: ConflictModel
@@ -91,8 +91,18 @@ class ExecutablePlan:
     pipeline: object = None       # the compiled Pipeline
 
     @property
+    def lowered(self) -> "runner.LoweredPlan":
+        """The plan lowered for the runner on its device (its moves or
+        tables and its placements), made on first use and kept."""
+        low = self.__dict__.get("_lowered")
+        if low is None:
+            low = self._lowered = runner.LoweredPlan(
+                self.schedule, self.num_groups, self.device.device)
+        return low
+
+    @property
     def torch_device(self) -> torch.device:
-        return runner.resolve_device(self.device.device)
+        return self.lowered.device
 
     @property
     def num_subrounds(self) -> int:
@@ -107,51 +117,25 @@ class ExecutablePlan:
 
     def tables(self) -> torch.Tensor:
         """The run's int32 ``[cycles, d, 5, n]`` tables on the device,
-        uploaded on first use and reused by every run."""
-        tabs = self.__dict__.get("_tables")
-        if tabs is None:
-            tabs = self._tables = runner.build_tables(
-                self.schedule, self.num_groups, self.torch_device)
-        return tabs
+        uploaded on first use (``LoweredPlan.tables``)."""
+        return self.lowered.tables()
 
     def moves(self) -> "runner.Moves":
-        """The run's compacted moves (``runner.build_moves``) on the device,
+        """The run's compacted moves (``LoweredPlan.moves``) on the device,
         built on first use and reused by every run. On a GPU the placement
         of the plan's own payload (``nbytes`` of ``device.dtype``) is made
-        with them (``placements``): its row offsets are allocated in
-        lowering, before any request's output, so they split no block the
-        requests reuse."""
-        mv = self.__dict__.get("_moves")
-        if mv is None:
-            mv = self._moves = runner.build_moves(
-                self.schedule, self.num_groups, self.torch_device)
-            if mv.device.type == "cuda":
-                x = torch.empty(self._payload_numel(), device="meta",
-                                dtype=getattr(torch, self.device.dtype))
-                runner.place(mv, runner.packet_layout(
-                    x, self.schedule, self.num_groups),
-                    x.numel() * x.element_size(), self.root,
-                    self.placements())
-        return mv
-
-    def _program(self) -> dict:
-        """What ``run_cycles`` needs on the plan's device: the moves on a
-        GPU, the tables on the CPU."""
-        if self.torch_device.type == "cuda":
-            return dict(moves=self.moves())
-        return dict(tabs=self.tables())
-
-    def placements(self) -> dict:
-        """``runner.place``'s cache for this plan: each payload layout's
-        placement of K1's rows (in place or staged), made once (by
-        ``moves`` for the plan's own payload, else by the layout's first
-        run) and reused by every later run."""
-        return self.__dict__.setdefault("_placements", {})
+        with them: its row offsets are allocated in lowering, before any
+        request's output, so they split no block the requests reuse."""
+        low = self.lowered
+        if low.cuda:
+            low.placement(torch.empty(self._payload_numel(), device="meta",
+                                      dtype=getattr(torch, self.device.dtype)))
+        return low.moves()
 
     def run(self, x: torch.Tensor, group=None) -> torch.Tensor:
-        """Execute the broadcast; returns the per-device copies stacked on a
-        leading axis (shape ``(n,) + x.shape``) on the plan's device.
-        ``x`` is only read.
+        """Execute the broadcast (``runner.broadcast``); returns the
+        per-device copies stacked on a leading axis (shape ``(n,) +
+        x.shape``) on the plan's device. ``x`` is only read.
 
         With a ``torch.distributed`` process group of n ranks, every rank
         calls it and each runs its own device
@@ -164,12 +148,7 @@ class ExecutablePlan:
                 x, self.schedule, self.num_groups, group,
                 device=self.device.device)
         with spans.span("bcast.run", request=True):
-            prog = self._program()
-            return runner.bbs_broadcast(x, self.schedule, self.num_groups,
-                                        self.torch_device,
-                                        tables=prog.get("tabs"),
-                                        moves=prog.get("moves"),
-                                        placements=self.placements())
+            return runner.broadcast(self.lowered, x)
 
     def verify(self, x: torch.Tensor, group=None) -> DeviceDelivery:
         """Run and compare every device's bytes with the payload's, on the
@@ -208,10 +187,10 @@ class ExecutablePlan:
     def measure(self, x: Optional[torch.Tensor] = None, reps: int = 5,
                 group=None) -> float:
         """Seconds per broadcast: the minimum over ``reps`` timed runs of the
-        cycle loop (on a GPU one ``permute_rounds`` launch), after one
-        untimed warm-up run. Each run starts from freshly packed buffers,
-        made outside the timed window, in the layout ``run`` takes (on a
-        GPU in place where ``runner.place`` allows it). Timed with
+        cycle loop (``LoweredPlan.cycles``; on a GPU one ``permute_rounds``
+        launch), after one untimed warm-up run. Each run starts from a
+        fresh buffer started outside the timed window, at the placement
+        ``run`` takes (``LoweredPlan.start``). Timed with
         ``torch.cuda.Event`` on a GPU and ``perf_counter`` on the CPU.
 
         With a ``torch.distributed`` group, every rank calls it and the
@@ -227,39 +206,29 @@ class ExecutablePlan:
             return distributed.measure(distributed.prepare_bbs(
                 x, self.schedule, self.num_groups, group,
                 device=self.device.device), reps)
-        dev = self.torch_device
-        x = (self.default_payload() if x is None else x).to(dev)
-        lay = runner.packet_layout(x, self.schedule, self.num_groups)
-        prog = self._program()
-        plc = None
-        if "moves" in prog:
-            plc = runner.place(prog["moves"], lay,
-                               x.numel() * x.element_size(),
-                               self.root, self.placements())
-            if plc.inplace:
-                prog["at"] = plc.at
+        low = self.lowered
+        x = (self.default_payload() if x is None else x).to(low.device)
+        plc = low.placement(x)
         best = float("inf")
-        for i in range(reps + 1):
-            if plc is not None and plc.inplace:
-                buf = runner.pack_inplace(x, plc, self.root, dev)
-            else:
-                buf = runner.pack(x, lay, self.root, dev)
-            if dev.type == "cuda":
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                torch.cuda.synchronize(dev)
-                start.record()
-                runner.run_cycles(buf, **prog)
-                end.record()
-                end.synchronize()
-                t = start.elapsed_time(end) / 1e3
-            else:
-                t0 = time.perf_counter()
-                runner.run_cycles(buf, **prog)
-                t = time.perf_counter() - t0
-            del buf
-            if i:                                   # run 0 is the warm-up
-                best = min(best, t)
+        with low.launching() as stream:
+            for i in range(reps + 1):
+                buf = low.start(x, plc, stream)
+                if low.cuda:
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    torch.cuda.synchronize(low.device)
+                    start.record()
+                    low.cycles(buf, plc, stream)
+                    end.record()
+                    end.synchronize()
+                    t = start.elapsed_time(end) / 1e3
+                else:
+                    t0 = time.perf_counter()
+                    low.cycles(buf, plc, stream)
+                    t = time.perf_counter() - t0
+                del buf
+                if i:                               # run 0 is the warm-up
+                    best = min(best, t)
         return best
 
     def calibrate(self, group=None, **kw):

@@ -3,14 +3,15 @@
 The reference (``repro.device.runner``) runs the cycle loop as a
 ``lax.scan`` over a shard_map program, one ``collective-permute`` per
 sub-round with the packed scatter+gather step between permutes. Here the
-n devices of the fabric are *virtual*: their packet buffers are one
-``[n, rows, row_bytes]`` uint8 tensor on one device, and each sub-round is
-the permute, scatter and gather of all n devices at once. On a GPU the
-whole cycle loop -- ``cycles x d`` sub-rounds -- is one launch of
-``repro_torch.device.round_step.permute_rounds`` over the plan's compacted
-moves (``build_moves``, uploaded once per plan); on the CPU it is the plain
-sub-round ``permute_step`` once per (cycle, sub-round) of the tables
-(``build_tables``).
+n devices of the fabric are *virtual*: their packet rows live in one uint8
+allocation on one device, and each sub-round is the permute, scatter and
+gather of all n devices at once. On a GPU the whole cycle loop -- ``cycles
+x d`` sub-rounds -- is one launch of
+``repro_torch.device.round_step.permute_rounds`` (K1) over the plan's
+compacted moves (``build_moves``, uploaded once per plan); on the CPU it is
+the plain version of the same moves, or, where no caller asked for the
+moves, the plain sub-round ``permute_step`` once per (cycle, sub-round) of
+the tables (``build_tables``).
 
 Conventions kept from the reference: the payload is padded to ``m*K``
 packet rows, relay rows follow them; only the root's buffer starts with
@@ -19,43 +20,43 @@ device's copy as ``(n,) + x.shape`` with relay rows and padding dropped.
 Rows are raw bytes (padded to a multiple of 16), so every dtype comes
 through bit-exact.
 
-Two layouts hold the rows (``place`` chooses, from what it observes):
+``LoweredPlan`` is one (schedule, num_groups, device) lowered for the
+runner: K1's moves (on a GPU always, on the CPU once a caller asks), else
+the CPU's sub-round tables, and each payload shape's ``Placement``
+(``place``), made once. ``broadcast`` runs a request on it in three steps,
+each of which picks the kernel on a GPU and the plain version on the CPU:
+``start`` the buffer, ``cycles`` (K1), ``finish`` the stacked output. Two
+layouts hold the rows:
 
-* **in place** (``pack_inplace``, ``unpack_inplace``; on a GPU
-  ``run_inplace`` makes their three launches): the stacked output
-  is where K1 writes. One allocation holds the ``[n, nbytes]`` output and,
-  after it, a small zeroed scratch region. Packet row p covers payload
-  bytes ``[p * row_bytes, (p + 1) * row_bytes)`` (the padding at the end);
-  a row wholly inside the payload lies in its device's output, the row
-  that straddles the payload's end, rows of padding alone and the relay
-  rows in scratch. A request starts the allocation (``fill_inplace``: the
-  root's payload into its output and its tail into its straddling row,
-  scratch zeroed), runs K1 on the rows' byte offsets, and copies each
-  device's straddling row into its output's tail (``unpack_tail``). Taken
-  for K1's moves (on a GPU always; on the CPU where the caller passes
-  them) when ``nbytes`` is a multiple of 16 and the plan writes every
-  non-root packet row inside the payload before anything reads it
-  (``writes_first``), so that no output byte depends on what the
+* **in place**: the stacked output is where K1 writes. One allocation
+  holds the ``[n, nbytes]`` output and, after it, a small zeroed scratch
+  region. Packet row p covers payload bytes ``[p * row_bytes, (p + 1) *
+  row_bytes)``; a row wholly inside the payload lies in its device's
+  output, the row that straddles the payload's end, rows of padding alone
+  and the relay rows in scratch. The start writes the root's payload and
+  tail and zeroes scratch (``fill_inplace``, plain ``fill_ref``), K1 runs
+  on the rows' byte offsets, and the finish copies each straddling row
+  into its device's output (``unpack_tail``, plain ``tail_ref``). On a GPU
+  these are three unchecked launches (``_launch_fill``, ``launch_rounds``,
+  ``_launch_tail``): ``place`` checked once what holds for every request.
+  Taken for K1's moves when ``nbytes`` is a multiple of 16 and the plan
+  writes every non-root packet row inside the payload before anything
+  reads it (``writes_first``), so no output byte depends on what the
   allocation held.
-* **staged** (``pack``, ``unpack``): the ``[n, rows, row_bytes]`` buffer,
-  packet row p holding payload bytes ``[p * used, (p + 1) * used)``, zero
-  filled, then copied out. Taken otherwise, and on the CPU's sub-round
-  path.
+* **staged**: the ``[n, rows, row_bytes]`` buffer, packet row p holding
+  payload bytes ``[p * used, (p + 1) * used)``: zero filled (``pack``),
+  run (``run_cycles``), copied out (``unpack``: one launch of
+  ``csrc/unpack_rows.cu``, ``unpack_rows``, plain ``unpack_ref``). Taken
+  otherwise.
 
-``inplace_runs`` and ``staged_runs`` count the broadcasts of each.
-
-The copy out (``unpack``, and the in-place tail) is one launch of the
-hand-written CUDA kernel ``csrc/unpack_rows.cu`` on a GPU (``unpack_rows``,
-``unpack_tail``) and the plain version (``unpack_ref``, ``tail_ref``) on
-the CPU. ``unpack_launches`` counts the kernel's launches and
-``unpack_bytes`` the bytes they read and wrote. The in-place start is one
-launch of the same library's ``fill_inplace`` kernel on a GPU
-(``fill_launches`` counts them) and ``fill_ref`` on the CPU.
-
-While ``repro_torch.spans`` records, a broadcast opens ``runner.pack``,
-``runner.cycles`` and ``runner.unpack`` (on a GPU: the one ``unpack_rows``
-launch, if any), its first of a layout ``lower.place``, and a lowering
-``lower.moves`` around ``lower.slot_tables``, ``lower.compact_moves`` and
+``inplace_runs`` and ``staged_runs`` count the broadcasts of each;
+``fill_launches`` the ``fill_inplace`` kernel's launches,
+``unpack_launches`` the ``unpack_rows`` kernel's (the tail's too) and
+``unpack_bytes`` the bytes they read and wrote. While
+``repro_torch.spans`` records, a broadcast opens ``runner.pack``,
+``runner.cycles`` and ``runner.unpack`` around its steps, the first of a
+shape with K1's moves ``lower.place``, and a lowering ``lower.moves``
+around ``lower.slot_tables``, ``lower.compact_moves`` and
 ``lower.upload``.
 
 ``binomial_broadcast`` and ``chain_broadcast`` are the reference's two
@@ -65,6 +66,7 @@ versions use no Pallas kernel either).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 from typing import Optional
@@ -204,15 +206,14 @@ def pack(x: torch.Tensor, lay: PacketLayout, root: int,
          device: torch.device) -> torch.Tensor:
     """Fresh packet buffers: the root's packet rows hold the zero-padded
     payload, everything else is zero. ``x`` is only read."""
-    with spans.span("runner.pack"):
-        buf = torch.zeros((lay.n, lay.rows, lay.row_bytes),
-                          dtype=torch.uint8, device=device)
-        xb = _as_bytes(x).to(device)
-        padded = torch.zeros(lay.total * lay.used, dtype=torch.uint8,
-                             device=device)
-        padded[:xb.numel()] = xb
-        buf[root, :lay.total, :lay.used] = padded.view(lay.total, lay.used)
-        return buf
+    buf = torch.zeros((lay.n, lay.rows, lay.row_bytes), dtype=torch.uint8,
+                      device=device)
+    xb = _as_bytes(x).to(device)
+    padded = torch.zeros(lay.total * lay.used, dtype=torch.uint8,
+                         device=device)
+    padded[:xb.numel()] = xb
+    buf[root, :lay.total, :lay.used] = padded.view(lay.total, lay.used)
+    return buf
 
 
 @dataclasses.dataclass(frozen=True)
@@ -287,42 +288,23 @@ def writes_first(moves: Moves, root: int, full: int) -> bool:
     return bool(ok.all())
 
 
-def place(moves: Moves, lay: PacketLayout, nbytes: int, root: int,
-          cache: Optional[dict] = None) -> Placement:
+def place(moves: Moves, lay: PacketLayout, nbytes: int,
+          root: int) -> Placement:
     """The layout of a broadcast of ``nbytes`` bytes on ``lay`` by K1's
     ``moves`` from ``root``: in place when ``nbytes`` is a positive
     multiple of 16, every sub-round fits one launch (``fits_launch``) and
-    ``writes_first`` holds, else staged. ``cache`` (a dict the caller
-    keeps; the executable keeps one) holds each (layout, size)'s
-    placement, so a shape's offsets and checks are made once."""
-    key = (lay, nbytes)
-    plc = None if cache is None else cache.get(key)
-    if plc is None:
-        if (moves.n, moves.rows) != (lay.n, lay.rows):
-            raise ValueError(f"the moves index [{moves.n}, {moves.rows}] "
-                             f"rows, the layout has [{lay.n}, {lay.rows}]")
-        with spans.span("lower.place"):
-            plc = Placement(lay, nbytes)
-            if nbytes > 0 and nbytes % 16 == 0 and fits_launch(
-                    moves, lay.row_bytes) and writes_first(
-                    moves, root, nbytes // lay.row_bytes):
-                plc = Placement(lay, nbytes, moves.offsets(
-                    lay.row_bytes, inplace_rows(lay, nbytes)))
-        if cache is not None:
-            cache[key] = plc
-    return plc
-
-
-def pack_inplace(x: torch.Tensor, plc: Placement, root: int,
-                 device: torch.device) -> torch.Tensor:
-    """A fresh in-place allocation (``plc.alloc_bytes`` uint8, whatever
-    the allocator's block held) as K1 starts (``fill_inplace``). ``x`` is
-    only read."""
-    with spans.span("runner.pack"):
-        alloc = torch.empty(plc.alloc_bytes, dtype=torch.uint8,
-                            device=device)
-        fill_inplace(alloc, x, plc, root)
-        return alloc
+    ``writes_first`` holds, else staged. ``LoweredPlan.placement`` makes
+    each shape's once."""
+    if (moves.n, moves.rows) != (lay.n, lay.rows):
+        raise ValueError(f"the moves index [{moves.n}, {moves.rows}] "
+                         f"rows, the layout has [{lay.n}, {lay.rows}]")
+    with spans.span("lower.place"):
+        if nbytes > 0 and nbytes % 16 == 0 and fits_launch(
+                moves, lay.row_bytes) and writes_first(
+                moves, root, nbytes // lay.row_bytes):
+            return Placement(lay, nbytes, moves.offsets(
+                lay.row_bytes, inplace_rows(lay, nbytes)))
+        return Placement(lay, nbytes)
 
 
 def fill_ref(alloc: torch.Tensor, xb: torch.Tensor, plc: Placement,
@@ -357,10 +339,9 @@ def fill_inplace(alloc: torch.Tensor, x: torch.Tensor, plc: Placement,
     held: the root's output holds the payload, and scratch is zero but for
     the root's straddling row, which holds the payload's tail. Nothing else
     is written: K1 writes every other row inside the payload before
-    anything reads it (``writes_first``). On a GPU one launch of
-    ``csrc/unpack_rows.cu``'s ``fill_inplace`` on the current stream (every
-    check raises before the kernel is built or launched); on the CPU
-    ``fill_ref``. ``x`` is only read."""
+    anything reads it (``writes_first``). ``_fill`` after its checks, on
+    the current stream (every check raises before the kernel is built or
+    launched). ``x`` is only read."""
     lay, nb = plc.lay, plc.nbytes
     xb = _as_bytes(x).to(alloc.device)
     if (alloc.dtype != torch.uint8 or alloc.dim() != 1
@@ -371,16 +352,28 @@ def fill_inplace(alloc: torch.Tensor, x: torch.Tensor, plc: Placement,
                          f"{alloc.dtype} {tuple(alloc.shape)} and "
                          f"{xb.numel()} bytes")
     if alloc.device.type != "cuda":
-        fill_ref(alloc, xb, plc, root)
+        _fill(alloc, xb, plc, root, None)
         return
     if nb % 16 or lay.row_bytes % 16 or alloc.data_ptr() % 16:
         raise ValueError("the kernel copies 16-byte chunks: nbytes, "
                          "row_bytes and the address must be multiples of 16")
+    with torch.cuda.device(alloc.device):
+        _fill(alloc, xb, plc, root,
+              torch.cuda.current_stream(alloc.device).cuda_stream)
+
+
+def _fill(alloc: torch.Tensor, xb: torch.Tensor, plc: Placement, root: int,
+          stream) -> None:
+    """``fill_inplace``'s step, unchecked, on the payload's bytes ``xb``: on
+    a GPU one ``_launch_fill`` on the raw ``stream`` of the current device
+    (``xb`` copied onto the 16-byte grid where it is off it), on the CPU
+    ``fill_ref``."""
+    if alloc.device.type != "cuda":
+        fill_ref(alloc, xb, plc, root)
+        return
     if xb.data_ptr() % 16:
         xb = xb.clone()
-    with torch.cuda.device(alloc.device):
-        _launch_fill(alloc, xb, plc, root,
-                     torch.cuda.current_stream(alloc.device).cuda_stream)
+    _launch_fill(alloc, xb, plc, root, stream)
 
 
 def _launch_fill(alloc: torch.Tensor, xb: torch.Tensor, plc: Placement,
@@ -400,17 +393,15 @@ def _launch_fill(alloc: torch.Tensor, xb: torch.Tensor, plc: Placement,
 
 
 def run_cycles(buf: torch.Tensor, tabs: torch.Tensor = None,
-               moves: Moves = None,
-               at: Optional[RowOffsets] = None) -> torch.Tensor:
-    """The cycle loop. With ``moves`` (``build_moves``; on a GPU always):
-    ``permute_rounds`` over every sub-round of them, on a CUDA ``buf`` one
-    launch, at the rows' offsets ``at`` for an in-place allocation.
-    Otherwise: one ``permute_step`` per (cycle, sub-round) of ``tabs``
-    (``build_tables``). The reference's cycle-start gather (a round step
-    with no write) needs no work: nothing is written between it and the
-    sub-round-0 read."""
+               moves: Moves = None) -> torch.Tensor:
+    """The staged cycle loop on the ``[n, rows, row_bytes]`` buffer. With
+    ``moves`` (``build_moves``; on a GPU always): ``permute_rounds`` over
+    every sub-round of them, on a CUDA ``buf`` one launch. Otherwise: one
+    ``permute_step`` per (cycle, sub-round) of ``tabs`` (``build_tables``).
+    The reference's cycle-start gather (a round step with no write) needs
+    no work: nothing is written between it and the sub-round-0 read."""
     if moves is not None:
-        return permute_rounds(buf, moves, at=at)
+        return permute_rounds(buf, moves)
     cycles, d = tabs.shape[:2]
     for c in range(cycles):
         for r in range(d):
@@ -497,13 +488,12 @@ def unpack(buf: torch.Tensor, lay: PacketLayout,
     with relay rows and padding dropped (one copy out of ``buf``): one
     ``unpack_rows`` launch for a CUDA ``buf``, ``unpack_ref`` for a CPU
     one."""
-    with spans.span("runner.unpack"):
-        nbytes = x.numel() * x.element_size()
-        if buf.device.type == "cuda":
-            out = unpack_rows(buf, lay, nbytes)
-        else:
-            out = unpack_ref(buf, lay, nbytes)
-        return out.view(x.dtype).reshape((lay.n,) + tuple(x.shape))
+    nbytes = x.numel() * x.element_size()
+    if buf.device.type == "cuda":
+        out = unpack_rows(buf, lay, nbytes)
+    else:
+        out = unpack_ref(buf, lay, nbytes)
+    return out.view(x.dtype).reshape((lay.n,) + tuple(x.shape))
 
 
 def tail_ref(alloc: torch.Tensor, plc: Placement) -> None:
@@ -550,92 +540,131 @@ def _launch_tail(alloc: torch.Tensor, plc: Placement, stream: int) -> None:
                    lay.row_bytes, tail, tail, nb, nb - tail, stream)
 
 
-def unpack_inplace(alloc: torch.Tensor, plc: Placement,
-                   x: torch.Tensor) -> torch.Tensor:
-    """Every device's copy, stacked as ``(n,) + x.shape`` in ``x``'s dtype:
-    the allocation's first ``n * nbytes`` bytes, once each device's
-    straddling row is in its output's tail (``unpack_tail`` on a GPU,
-    ``tail_ref`` on the CPU). Contiguous; scratch stays allocated behind
-    it."""
-    with spans.span("runner.unpack"):
-        if plc.tail:
-            if alloc.device.type == "cuda":
-                unpack_tail(alloc, plc)
+class LoweredPlan:
+    """A schedule's broadcast of ``num_groups`` groups lowered for the
+    runner on ``device`` (module docstring); ``placements`` holds each
+    payload shape's ``Placement`` by ``(x.shape, x.dtype)``. ``broadcast``
+    runs its requests; ``start``, ``cycles`` and ``finish`` are its steps,
+    each given the raw CUDA stream of ``launching`` (None on the CPU)."""
+
+    def __init__(self, sched: DeviceSchedule, num_groups: int,
+                 device="cuda"):
+        self.sched, self.num_groups, self.root = sched, num_groups, sched.root
+        self.device = resolve_device(device)
+        self.cuda = self.device.type == "cuda"
+        self.placements: dict = {}
+        self._moves: Optional[Moves] = None
+        self._tables: Optional[torch.Tensor] = None
+
+    def moves(self) -> Moves:
+        """K1's compacted moves on the device (``build_moves``), built on
+        first use. From then on every new shape is placed with them: the
+        placements made before, staged for the tables, are dropped."""
+        if self._moves is None:
+            self._moves = build_moves(self.sched, self.num_groups,
+                                      self.device)
+            self.placements.clear()
+        return self._moves
+
+    def tables(self) -> torch.Tensor:
+        """The int32 ``[cycles, d, 5, n]`` sub-round tables on the device
+        (``build_tables``), built on first use."""
+        if self._tables is None:
+            self._tables = build_tables(self.sched, self.num_groups,
+                                        self.device)
+        return self._tables
+
+    def placement(self, x: torch.Tensor) -> Placement:
+        """Where a broadcast of ``x`` keeps its rows: made on the first
+        request of its shape and dtype, with the moves on a GPU or once
+        asked for, else with the tables; looked up after."""
+        plc = self.placements.get((x.shape, x.dtype))
+        if plc is None:
+            lay = packet_layout(x, self.sched, self.num_groups)
+            nbytes = x.numel() * x.element_size()
+            if self.cuda or self._moves is not None:
+                plc = place(self.moves(), lay, nbytes, self.root)
             else:
-                tail_ref(alloc, plc)
+                self.tables()
+                plc = Placement(lay, nbytes)
+            self.placements[(x.shape, x.dtype)] = plc
+        return plc
+
+    @contextlib.contextmanager
+    def launching(self):
+        """The plan's GPU made current, yielding its raw stream (None)."""
+        if not self.cuda:
+            yield None
+            return
+        with torch.cuda.device(self.device):
+            yield torch.cuda.current_stream(self.device).cuda_stream
+
+    def start(self, x: torch.Tensor, plc: Placement,
+              stream) -> torch.Tensor:
+        """A fresh buffer started as K1 needs it: in place, the allocation
+        with the root's payload and tail and scratch zeroed (``_fill``: one
+        ``fill_inplace`` launch on a GPU, ``fill_ref`` on the CPU); staged,
+        ``pack``. ``x`` is only read."""
+        if not plc.inplace:
+            return pack(x, plc.lay, self.root, self.device)
+        alloc = torch.empty(plc.alloc_bytes, dtype=torch.uint8,
+                            device=self.device)
+        _fill(alloc, _as_bytes(x).to(self.device), plc, self.root, stream)
+        return alloc
+
+    def cycles(self, buf: torch.Tensor, plc: Placement, stream) -> None:
+        """The cycle loop on a started buffer: in place, K1 at the
+        placement's offsets (one launch on a GPU, its plain version on the
+        CPU); staged, ``run_cycles`` over the moves or the tables."""
+        mv = self._moves
+        if not plc.inplace:
+            run_cycles(buf, self._tables if mv is None else None, mv)
+        elif not self.cuda:
+            permute_rounds(buf, mv, at=plc.at)
+        elif mv.num_subrounds:
+            launch_rounds(buf, mv, 0, mv.num_subrounds, plc.at, stream)
+
+    def finish(self, buf: torch.Tensor, plc: Placement, x: torch.Tensor,
+               stream) -> torch.Tensor:
+        """Every device's copy, stacked as ``(n,) + x.shape`` in ``x``'s
+        dtype. In place: the allocation's first ``n * nbytes`` bytes, once
+        each device's straddling row is in its output's tail (one
+        ``unpack_rows`` launch on a GPU, ``tail_ref`` on the CPU),
+        contiguous, scratch still allocated behind it. Staged:
+        ``unpack``."""
+        if not plc.inplace:
+            return unpack(buf, plc.lay, x)
+        if plc.tail:
+            if self.cuda:
+                _launch_tail(buf, plc, stream)
+            else:
+                tail_ref(buf, plc)
         n, nb = plc.lay.n, plc.nbytes
-        return alloc[:n * nb].view(n, nb).view(x.dtype).reshape(
+        return buf[:n * nb].view(n, nb).view(x.dtype).reshape(
             (n,) + tuple(x.shape))
 
 
-def run_inplace(x: torch.Tensor, plc: Placement, moves: Moves, root: int,
-                device: torch.device) -> torch.Tensor:
-    """One in-place broadcast on a GPU, as ``pack_inplace``, K1 at the
-    placement's offsets and ``unpack_inplace`` make it, in their three
-    launches on the current stream, found once. What holds for every
-    request of a placement was checked when ``place`` made it; only the
-    payload is checked here. So the host's work before K1's launch, during
-    which the card idles, is short."""
-    lay, nb = plc.lay, plc.nbytes
-    xb = _as_bytes(x).to(device)
-    if xb.numel() != nb:
-        raise ValueError(f"the placement is for {nb} bytes, x has "
-                         f"{xb.numel()}")
-    if xb.data_ptr() % 16:
-        xb = xb.clone()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        with spans.span("runner.pack"):
-            alloc = torch.empty(plc.alloc_bytes, dtype=torch.uint8,
-                                device=device)
-            _launch_fill(alloc, xb, plc, root, stream)
-        with spans.span("runner.cycles"):
-            if moves.num_subrounds:
-                launch_rounds(alloc, moves, 0, moves.num_subrounds, plc.at,
-                              stream)
-        with spans.span("runner.unpack"):
-            if plc.tail:
-                _launch_tail(alloc, plc, stream)
-    return alloc[:lay.n * nb].view(lay.n, nb).view(x.dtype).reshape(
-        (lay.n,) + tuple(x.shape))
-
-
-def bbs_broadcast(x: torch.Tensor, sched: DeviceSchedule, num_groups: int,
-                  device="cuda", tables: torch.Tensor = None,
-                  moves: Moves = None,
-                  placements: Optional[dict] = None) -> torch.Tensor:
-    """Broadcast ``x`` from the schedule's root to all ``n`` virtual
-    devices; returns the stacked copies ``(n,) + x.shape`` on ``device``.
-    On a GPU K1 runs the plan's ``moves`` (or a ``build_moves`` of the
-    schedule), in place or staged as ``place`` chooses; ``placements`` is
-    ``place``'s cache (the executable keeps one). On the CPU the same runs
-    where ``moves`` is given; otherwise the staged buffer takes one
-    ``permute_step`` a sub-round of ``tables`` (or a ``build_tables``
-    upload)."""
+def broadcast(low: LoweredPlan, x: torch.Tensor) -> torch.Tensor:
+    """Broadcast ``x`` from the plan's root to all ``n`` virtual devices;
+    returns the stacked copies ``(n,) + x.shape`` on the plan's device.
+    The one composition of a request, in either layout on either device:
+    its placement looked up, then ``start``, ``cycles`` and ``finish`` in
+    the spans ``runner.pack``, ``runner.cycles`` and ``runner.unpack``.
+    ``x`` is only read."""
     global inplace_runs, staged_runs
-    dev = resolve_device(device)
-    lay = packet_layout(x, sched, num_groups)
-    if dev.type == "cuda" and moves is None:
-        moves = build_moves(sched, num_groups, dev)
-    if moves is None and tables is None:
-        tables = build_tables(sched, num_groups, dev)
-    plc = None if moves is None else place(
-        moves, lay, x.numel() * x.element_size(), sched.root, placements)
-    if plc is not None and plc.inplace:
-        if dev.type == "cuda":
-            out = run_inplace(x, plc, moves, sched.root, dev)
-        else:
-            alloc = pack_inplace(x, plc, sched.root, dev)
-            with spans.span("runner.cycles"):
-                permute_rounds(alloc, moves, at=plc.at)
-            out = unpack_inplace(alloc, plc, x)
+    plc = low.placement(x)
+    with low.launching() as stream:
+        with spans.span("runner.pack"):
+            buf = low.start(x, plc, stream)
+        with spans.span("runner.cycles"):
+            low.cycles(buf, plc, stream)
+        with spans.span("runner.unpack"):
+            out = low.finish(buf, plc, x, stream)
+    if plc.inplace:
         inplace_runs += 1
-        return out
-    buf = pack(x, lay, sched.root, dev)
-    with spans.span("runner.cycles"):
-        run_cycles(buf, tables, moves)
-    staged_runs += 1
-    return unpack(buf, lay, x)
+    else:
+        staged_runs += 1
+    return out
 
 
 def binomial_broadcast(x: torch.Tensor, n: int, root: int = 0,

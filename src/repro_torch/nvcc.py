@@ -28,10 +28,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# flags of one source on top of NVCC_FLAGS: the event cores' float64 adds
+# flags of one source on top of NVCC_FLAGS: the event core's float64 adds
 # must round as numpy's do, so no contraction into fused multiply-adds
-EXTRA_FLAGS: Dict[str, Sequence[str]] = {"event_core": ("-fmad=false",),
-                                         "event_core_scan": ("-fmad=false",)}
+EXTRA_FLAGS: Dict[str, Sequence[str]] = {"event_core": ("-fmad=false",)}
 
 _libs: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
 _lock = threading.Lock()

@@ -16,11 +16,11 @@ stack kept per thread.
 The spans the port opens, in layer order::
 
     bcast.run          ExecutablePlan.run on one card        (request=True)
-      lower.place      runner.place, a layout's first run: K1's row offsets
-      runner.pack      runner.pack / pack_inplace
-      runner.cycles    runner.bbs_broadcast around K1
-      runner.unpack    runner.unpack / unpack_inplace (on a GPU: at most
-                       one unpack_rows launch)
+      lower.place      runner.place, a shape's first run: K1's row offsets
+      runner.pack      runner.broadcast around LoweredPlan.start
+      runner.cycles    runner.broadcast around K1 (LoweredPlan.cycles)
+      runner.unpack    runner.broadcast around LoweredPlan.finish (on a
+                       GPU: at most one unpack_rows launch)
     lower.executable   build_executable
       lower.schedule   each make_device_schedule inside it
     lower.moves        runner.build_moves / build_tables

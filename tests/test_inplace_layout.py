@@ -7,13 +7,15 @@ payload straight into the stacked output, at the byte offsets
 ``runner.place`` makes; only the row that straddles the payload's end, rows
 of padding alone and relay rows live in a zeroed scratch region after the
 output. So no byte of a non-root device's output may depend on what the
-allocation held before. Each case starts from an allocation poisoned with
-0xA5 and, separately, from another payload's answer of the same shape, and
-its stacked output must be byte-identical to the staged path's (the
-``[n, rows, row_bytes]`` buffer and its sub-round tables) and to the
-reference package's ``bbs_broadcast`` on the same schedule, run in one
-subprocess on a 16-device XLA-emulated host mesh, as
-``tests/test_torch_slice.py`` runs it. Tolerance: exact.
+allocation held before. Each case runs the runner's one composition
+(``runner.broadcast`` on a ``LoweredPlan`` with K1's moves), its fresh
+allocation poisoned, before the start fills it, with 0xA5 and, separately,
+with another payload's answer of the same shape, and its stacked output
+must be byte-identical to the staged path's (the ``[n, rows, row_bytes]``
+buffer and its sub-round tables) and to the reference package's
+``bbs_broadcast`` on the same schedule, run in one subprocess on a
+16-device XLA-emulated host mesh, as ``tests/test_torch_slice.py`` runs
+it. Tolerance: exact.
 
 The cases cover meshes, dragonflies and butterflies; a two-tree plan with
 relay rows; ``used % 16`` of 0, 4, 8 and 12; one to three packet rows past
@@ -137,28 +139,42 @@ def _bytes(t):
 
 def _staged(x, sched, groups):
     """The staged path on the CPU: sub-round tables, one step each."""
-    return runner.bbs_broadcast(x, sched, groups, "cpu")
+    return runner.broadcast(runner.LoweredPlan(sched, groups, "cpu"), x)
 
 
-def _inplace(x, sched, groups, moves, plc, alloc):
-    """The in-place path's three steps on ``alloc``, K1 by its plain
-    version at the placement's byte offsets."""
-    runner.fill_inplace(alloc, x, plc, sched.root)
-    rs.permute_rounds_ref(alloc, moves, at=plc.at)
-    return runner.unpack_inplace(alloc, plc, x)
+def _lowered(sched, groups):
+    """The schedule lowered on the CPU with K1's moves asked for."""
+    low = runner.LoweredPlan(sched, groups, "cpu")
+    low.moves()
+    return low
 
 
-def _poisoned(kind, x, sched, groups, moves, plc):
-    """An allocation of the placement's size holding 0xA5 bytes, or the
-    answer (scratch included) of another payload of the same shape."""
-    if kind == "a5":
-        return torch.full((plc.alloc_bytes,), 0xA5, dtype=torch.uint8)
-    g = torch.Generator().manual_seed(9)
-    other = torch.randint(0, 256, (x.numel() * x.element_size(),),
-                          dtype=torch.uint8, generator=g).view(x.dtype)
-    alloc = torch.empty(plc.alloc_bytes, dtype=torch.uint8)
-    _inplace(other, sched, groups, moves, plc, alloc)
-    return alloc
+def _inplace(low, x, poison, monkeypatch):
+    """The runner's composition with each request's fresh allocation
+    poisoned before ``runner.fill_ref`` starts it: with 0xA5 bytes, or
+    with the answer (scratch included) of another payload of the same
+    shape, broadcast first. K1 runs by its plain version at the
+    placement's byte offsets. Returns the output and its allocation."""
+    allocs = []
+    real = runner.fill_ref
+
+    def fill_ref(alloc, xb, plc, root):
+        if poison == "a5":
+            alloc.fill_(0xA5)
+        elif allocs:
+            alloc.copy_(allocs[-1])
+        allocs.append(alloc)
+        real(alloc, xb, plc, root)
+
+    monkeypatch.setattr(runner, "fill_ref", fill_ref)
+    if poison == "answer":
+        g = torch.Generator().manual_seed(9)
+        other = torch.randint(0, 256, (x.numel() * x.element_size(),),
+                              dtype=torch.uint8, generator=g).view(x.dtype)
+        runner.broadcast(low, other)
+    got = runner.broadcast(low, x)
+    assert len(allocs) == (2 if poison == "answer" else 1)
+    return got, allocs[-1]
 
 
 @pytest.mark.parametrize("poison", ["a5", "answer"])
@@ -166,20 +182,18 @@ def _poisoned(kind, x, sched, groups, moves, plc):
                          ids=[f"{c[0]}-r{c[1]}-{c[2]}-{c[4]}"
                               for c, _ in CASES])
 def test_inplace_outputs_byte_identical_to_staged_and_reference(
-        reference, case, covers, poison):
+        reference, case, covers, poison, monkeypatch):
     x, sched, groups, want = reference[case]
-    lay = runner.packet_layout(x, sched, groups)
-    moves = runner.build_moves(sched, groups, "cpu")
-    nbytes = x.numel() * x.element_size()
-    plc = runner.place(moves, lay, nbytes, sched.root)
-    assert plc.inplace
+    low = _lowered(sched, groups)
+    plc = low.placement(x)
+    lay, nbytes = plc.lay, x.numel() * x.element_size()
+    assert plc.inplace and plc.nbytes == nbytes
     used16, past, relay = covers
     assert (lay.total - plc.full, lay.relay) == (past, relay)
     if used16 is not None:
         assert lay.used % 16 == used16
     assert plc.tail == nbytes - plc.full * lay.row_bytes
-    alloc = _poisoned(poison, x, sched, groups, moves, plc)
-    got = _inplace(x, sched, groups, moves, plc, alloc)
+    got, alloc = _inplace(low, x, poison, monkeypatch)
     assert got.shape == (16,) + tuple(x.shape) and got.dtype == x.dtype
     assert got.is_contiguous() and got.data_ptr() == alloc.data_ptr()
     np.testing.assert_array_equal(_bytes(got), want.reshape(16, -1),
@@ -191,26 +205,25 @@ def test_inplace_outputs_byte_identical_to_staged_and_reference(
 @pytest.mark.parametrize("case", [CASES[i][0] for i in (0, 2, 5, 7)],
                          ids=["relay", "chain", "tail0", "mesh"])
 def test_runner_takes_the_inplace_path_for_moves(reference, case):
-    """``bbs_broadcast`` given K1's moves on the CPU takes the in-place path
-    (one ``inplace_runs`` a broadcast, the spans of a request), reuses its
-    cached placement, and answers as the reference does."""
+    """``broadcast`` on a plan lowered with K1's moves on the CPU takes the
+    in-place path (one ``inplace_runs`` a broadcast, the spans of a
+    request), reuses its cached placement, and answers as the reference
+    does."""
     from repro_torch import spans
 
     x, sched, groups, want = reference[case]
-    moves = runner.build_moves(sched, groups, "cpu")
-    cache = {}
+    low = _lowered(sched, groups)
     before = (runner.inplace_runs, runner.staged_runs)
     spans.start()
     try:
-        got = runner.bbs_broadcast(x, sched, groups, "cpu", moves=moves,
-                                   placements=cache)
-        again = runner.bbs_broadcast(x, sched, groups, "cpu", moves=moves,
-                                     placements=cache)
+        got = runner.broadcast(low, x)
+        again = runner.broadcast(low, x)
     finally:
         names = [s.name for s in spans.stop()]
     assert (runner.inplace_runs - before[0],
             runner.staged_runs - before[1]) == (2, 0)
-    assert len(cache) == 1 and next(iter(cache.values())).inplace
+    assert len(low.placements) == 1 and \
+        next(iter(low.placements.values())).inplace
     assert names == ["lower.place"] + \
         ["runner.pack", "runner.cycles", "runner.unpack"] * 2
     for out in (got, again):
@@ -221,13 +234,11 @@ def test_unaligned_payload_takes_the_staged_path(reference):
     """``nbytes % 16 != 0``: a device's output would start off the 16-byte
     grid, so the rows stay staged; the moves' answer is the reference's."""
     x, sched, groups, want = reference[STAGED]
-    moves = runner.build_moves(sched, groups, "cpu")
-    lay = runner.packet_layout(x, sched, groups)
-    nbytes = x.numel() * x.element_size()
-    assert nbytes % 16 == 4
-    assert not runner.place(moves, lay, nbytes, sched.root).inplace
+    low = _lowered(sched, groups)
+    assert x.numel() * x.element_size() % 16 == 4
+    assert not low.placement(x).inplace
     before = (runner.inplace_runs, runner.staged_runs)
-    got = runner.bbs_broadcast(x, sched, groups, "cpu", moves=moves)
+    got = runner.broadcast(low, x)
     assert (runner.inplace_runs - before[0],
             runner.staged_runs - before[1]) == (0, 1)
     np.testing.assert_array_equal(_bytes(got), want.reshape(16, -1))
@@ -246,24 +257,26 @@ def _planted(sched, groups, lay):
     return np.concatenate([t[None], tabs])
 
 
-def test_plan_reading_a_row_before_writing_it_stays_staged(reference):
+def test_plan_reading_a_row_before_writing_it_stays_staged(reference,
+                                                           monkeypatch):
     """A plan that reads a non-root packet row inside the payload before
     writing it fails ``writes_first``: ``place`` keeps it staged, and the
     runner counts a staged run whose answer is the sub-round chain's. The
     same plan forced in place carries the 0xA5 of the stale allocation into
     every device's output: the check is what keeps the layout exact."""
     x, sched, groups, want = reference[PLANTED]
-    lay = runner.packet_layout(x, sched, groups)
     nbytes = x.numel() * x.element_size()
-    plain = runner.build_moves(sched, groups, "cpu")
-    assert runner.place(plain, lay, nbytes, sched.root).inplace
+    plain = _lowered(sched, groups).placement(x)
+    lay = plain.lay
+    assert plain.inplace
     tabs = _planted(sched, groups, lay)
     moves = rs.compact_moves(tabs, lay.rows, lay.total)
     assert not runner.writes_first(moves, sched.root, nbytes // lay.row_bytes)
-    plc = runner.place(moves, lay, nbytes, sched.root)
-    assert not plc.inplace
+    monkeypatch.setattr(runner, "build_moves", lambda *args: moves)
+    low = _lowered(sched, groups)
+    assert low.moves() is moves and not low.placement(x).inplace
     before = (runner.inplace_runs, runner.staged_runs)
-    got = runner.bbs_broadcast(x, sched, groups, "cpu", moves=moves)
+    got = runner.broadcast(low, x)
     assert (runner.inplace_runs - before[0],
             runner.staged_runs - before[1]) == (0, 1)
     buf = runner.pack(x, lay, sched.root, CPU)
@@ -272,12 +285,76 @@ def test_plan_reading_a_row_before_writing_it_stays_staged(reference):
     chain = runner.unpack(buf, lay, x)
     np.testing.assert_array_equal(_bytes(got), _bytes(chain))
     assert not np.array_equal(_bytes(got), want.reshape(16, -1))
-    forced = runner.Placement(lay, nbytes, moves.offsets(
-        lay.row_bytes, runner.inplace_rows(lay, nbytes)))
-    alloc = torch.full((forced.alloc_bytes,), 0xA5, dtype=torch.uint8)
-    bad = _bytes(_inplace(x, sched, groups, moves, forced, alloc))
+    forced = low.placements[(x.shape, x.dtype)] = runner.Placement(
+        lay, nbytes, moves.offsets(lay.row_bytes,
+                                   runner.inplace_rows(lay, nbytes)))
+    bad = _bytes(_inplace(low, x, "a5", monkeypatch)[0])
     assert not np.array_equal(bad, _bytes(chain))
     assert (bad == 0xA5).any()
+
+
+def _cpu_exe(nbytes=64000, root=5):
+    from repro_torch import api
+    from repro_torch.core import topology as T
+    from repro_torch.core.simconfig import DeviceConfig, SimConfig
+    cpu = SimConfig(device=DeviceConfig(device="cpu"))
+    return api.compile(T.mesh2d(4, 4)).executable(root, nbytes, config=cpu)
+
+
+@pytest.mark.parametrize("program", ["tables", "moves"])
+def test_run_and_measure_share_one_placement(program):
+    """``ExecutablePlan.run`` and ``measure`` find the payload's placement
+    in the one cache of the plan's ``LoweredPlan``: one entry after both,
+    the same object, in place once K1's moves are asked for."""
+    ex = _cpu_exe()
+    getattr(ex, program)()
+    x = ex.default_payload(seed=4)
+    out = ex.run(x)
+    low = ex.lowered
+    assert len(low.placements) == 1
+    plc = next(iter(low.placements.values()))
+    assert ex.measure(x, reps=1) > 0
+    assert list(low.placements.values()) == [plc]
+    assert plc.inplace == (program == "moves")
+    raw = x.view(torch.uint8)
+    assert all(torch.equal(out[v].view(torch.uint8), raw) for v in range(16))
+
+
+def test_staged_and_inplace_requests_share_one_composition(monkeypatch):
+    """On one plan lowered with K1's moves, a payload of ``nbytes % 16 =
+    4`` (staged) and one of a multiple of 16 (in place) both go through
+    ``runner.broadcast`` once a request, under the same span names, and
+    each delivers its payload to every device."""
+    from repro_torch import spans
+
+    ex = _cpu_exe()
+    ex.moves()
+    calls = []
+    real = runner.broadcast
+    monkeypatch.setattr(runner, "broadcast",
+                        lambda low, x: calls.append(low) or real(low, x))
+    g = torch.Generator().manual_seed(11)
+    xs = {kind: torch.randint(0, 256, (nb,), dtype=torch.uint8,
+                              generator=g).view(torch.float32)
+          for kind, nb in (("staged", 64004), ("inplace", 64000))}
+    names = {}
+    for kind, x in xs.items():
+        before = (runner.inplace_runs, runner.staged_runs)
+        spans.start()
+        try:
+            out = ex.run(x)
+        finally:
+            names[kind] = [s.name for s in spans.stop()]
+        assert (runner.inplace_runs - before[0],
+                runner.staged_runs - before[1]) == \
+            ((1, 0) if kind == "inplace" else (0, 1))
+        raw = x.view(torch.uint8)
+        assert all(torch.equal(out[v].view(torch.uint8), raw)
+                   for v in range(16))
+    assert calls == [ex.lowered] * 2
+    assert names["staged"] == names["inplace"] == [
+        "bcast.run", "lower.place", "runner.pack", "runner.cycles",
+        "runner.unpack"]
 
 
 def test_writes_first_reads_sub_round_order():

@@ -141,8 +141,7 @@ def test_butterfly_relay_broadcast_on_card_matches_cpu(gpu, nbytes):
     out = ex.run(x)
     torch.cuda.synchronize()
     card_relay = rs.relay_bytes - before[2]
-    plc = runner.place(ex.moves(), runner.packet_layout(
-        x, ex.schedule, ex.num_groups), nbytes, 7, ex.placements())
+    plc = ex.lowered.placement(x)
     assert plc.inplace and runner.inplace_runs - before[4] == 1
     assert runner.fill_launches - before[5] == 1
     assert (rs.rounds_launches - before[0], rs.subrounds - before[1],
@@ -302,7 +301,7 @@ def test_rounds_kernel_rejects_bad_inputs(gpu):
 def test_rounds_kernel_on_byte_offsets_matches_plain(gpu, layout):
     """K1 on byte offsets (``Moves.offsets``) bit-identical to
     ``permute_rounds_ref`` at the same offsets: the staged buffer's rows on
-    its flat view, a real plan's in-place placement (``runner.place``) on a
+    its flat view, a real plan's in-place placement (``LoweredPlan``) on a
     random allocation, and random tables' rows shuffled through a larger
     allocation."""
     from repro_torch import api
@@ -314,10 +313,9 @@ def test_rounds_kernel_on_byte_offsets_matches_plain(gpu, layout):
     if layout == "inplace":
         ex = api.compile(T.butterfly(32)).executable(root=7, nbytes=1e6)
         x = ex.default_payload(seed=3)
-        lay = runner.packet_layout(x, ex.schedule, ex.num_groups)
         moves = ex.moves()
-        plc = runner.place(moves, lay, 1_000_000, 7)
-        assert plc.inplace and lay.relay > 0
+        plc = ex.lowered.placement(x)
+        assert plc.inplace and plc.lay.relay > 0
         at, size = plc.at, plc.alloc_bytes
     else:
         n, rows, row_bytes = 64, 9, 1008
@@ -363,7 +361,7 @@ def test_inplace_broadcast_on_a_stale_block(gpu, stale):
                                (T.mesh2d(4, 4), 5, 1 << 20)):
         ex = api.compile(topo).executable(root=root, nbytes=nbytes)
         ex.moves()                   # with its own payload's placement
-        assert [p.inplace for p in ex.placements().values()] == [True]
+        assert [p.inplace for p in ex.lowered.placements.values()] == [True]
         n = topo.num_nodes
         x1, x2 = ex.default_payload(seed=1), ex.default_payload(seed=2)
         before = (runner.inplace_runs, runner.staged_runs)
@@ -380,7 +378,7 @@ def test_inplace_broadcast_on_a_stale_block(gpu, stale):
         assert out.untyped_storage().data_ptr() == ptr   # the stale block
         assert runner.inplace_runs - before[0] == 2
         assert out.shape == (n,) + tuple(x2.shape) and out.dtype == x2.dtype
-        assert out.is_contiguous() and len(ex.placements()) == 1
+        assert out.is_contiguous() and len(ex.lowered.placements) == 1
         want = x2.to(gpu).view(torch.uint8)
         got = out.view(torch.uint8).reshape(n, -1)
         assert all(torch.equal(got[v], want) for v in range(n))
@@ -442,7 +440,7 @@ def test_fill_inplace_matches_plain(gpu, root, nbytes, shift):
 
 
 def test_measure_times_the_layout_run_takes(gpu, monkeypatch):
-    """``ExecutablePlan.measure`` packs in place where ``run`` does, so it
+    """``ExecutablePlan.measure`` starts in place where ``run`` does, so it
     times the main path's K1 on the in-place offsets."""
     from repro_torch import api
     from repro_torch.core import topology as T
@@ -450,11 +448,12 @@ def test_measure_times_the_layout_run_takes(gpu, monkeypatch):
 
     ex = api.compile(T.mesh2d(4, 4)).executable(root=5, nbytes=1 << 20)
     calls = []
-    real = runner.pack_inplace
-    monkeypatch.setattr(runner, "pack_inplace",
-                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    real = runner._launch_fill
+    monkeypatch.setattr(runner, "_launch_fill",
+                        lambda *a: calls.append(1) or real(*a))
     assert ex.measure(reps=2) > 0
     assert len(calls) == 3
+    assert [p.inplace for p in ex.lowered.placements.values()] == [True]
 
 
 def _unpack_case(gpu, lay, seed):
@@ -1203,7 +1202,7 @@ def test_event_core_kernel_matches_plain(gpu, topo_name, args, name):
 def test_event_core_both_variants_match_plain(gpu, topo_name, args, name,
                                               memory):
     """Each memory variant of the kernel, forced, returns what
-    ``event_core_ref`` returns; so does the scan kernel it replaced."""
+    ``event_core_ref`` returns."""
     from repro_torch.core import kernelsim as KS
 
     _, _, _, stat, durs, _ = _ec_arrays(gpu, topo_name, args, name,
@@ -1215,9 +1214,8 @@ def test_event_core_both_variants_match_plain(gpu, topo_name, args, name,
     got = KS.launch(st, durs.to(gpu), memory=memory)
     torch.cuda.synchronize()
     assert KS.variant_launches[memory] == before + 1
-    scan = KS.event_core_scan(*dev, durs.to(gpu))
-    for g, sc, w in zip(got, scan, want):
-        assert torch.equal(g.cpu(), w) and torch.equal(sc.cpu(), w)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
 
 
 def test_event_core_profile_build_matches_and_counts(gpu):
@@ -1296,8 +1294,8 @@ def test_event_core_more_than_1024_running(gpu):
 @pytest.mark.parametrize("side", [0, 1])
 def test_event_core_both_sides_of_the_shared_memory_threshold(gpu, side):
     """A random list just small enough for the shared variant and one just
-    too large: ``variant`` picks each, and the kernel equals the scan
-    kernel (itself held to ``event_core_ref`` above) on both."""
+    too large: ``variant`` picks each, and the kernel equals
+    ``event_core_ref`` (on the CPU) on both."""
     from repro_torch.core import kernelsim as KS
 
     lib = KS._kernel()
@@ -1317,9 +1315,9 @@ def test_event_core_both_sides_of_the_shared_memory_threshold(gpu, side):
     got = KS.event_core(*stat)
     assert KS.variant_launches[("shared", "global")[side]] == \
         before[("shared", "global")[side]] + 1
-    want = KS.event_core_scan(*stat)
+    want = KS.event_core_ref(*(t.cpu() for t in stat))
     for g, w in zip(got, want):
-        assert torch.equal(g, w)
+        assert torch.equal(g.cpu(), w)
 
 
 @pytest.mark.parametrize("zero_cap", [False, True])
@@ -1328,8 +1326,7 @@ def test_event_core_both_sides_of_the_shared_memory_threshold(gpu, side):
 def test_event_core_kernel_random_structures(gpu, n, lanes, zero_cap):
     """Ties, repeated ids, dummy pads, one task and lists of up to 2,100;
     with ``zero_cap`` the completion step with ``min(fin)`` inf, where a
-    done or unstarted task wins the scan of all n keys. The scan kernel
-    agrees too."""
+    done or unstarted task wins the scan of all n keys."""
     from repro_torch.core import kernelsim as KS
 
     stat = [torch.from_numpy(a) for a in KS.random_structure(
@@ -1337,9 +1334,8 @@ def test_event_core_kernel_random_structures(gpu, n, lanes, zero_cap):
         D=3, zero_cap=zero_cap)]
     want = KS.event_core(*stat)
     got = KS.event_core(*(t.to(gpu) for t in stat))
-    scan = KS.event_core_scan(*(t.to(gpu) for t in stat))
-    for g, sc, w in zip(got, scan, want):
-        assert torch.equal(g.cpu(), w) and torch.equal(sc.cpu(), w)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
 
 
 def test_kernelsim_on_card_matches_numpy_and_batches(gpu, monkeypatch):

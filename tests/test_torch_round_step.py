@@ -232,7 +232,7 @@ def test_compacted_rounds_on_real_plans(fabric):
             tabs.shape[0] * tabs.shape[1]
         assert ex.num_launches == 1
         x = ex.default_payload(seed=3)
-        lay = runner.packet_layout(x, ex.schedule, ex.num_groups)
+        lay = ex.lowered.placement(x).lay
         buf = runner.pack(x, lay, ex.root, torch.device("cpu"))
         want = runner.run_cycles(buf.clone(), tabs)
         got = rs.permute_rounds_ref(buf.clone(), moves)

@@ -98,7 +98,7 @@ def test_slice_outputs_byte_identical_to_reference(reference):
     from repro_torch import api
     from repro_torch.core import topology as T
     from repro_torch.core.simconfig import DeviceConfig, SimConfig
-    from repro_torch.device import bbs_broadcast, import_schedule
+    from repro_torch.device import LoweredPlan, broadcast, import_schedule
 
     arrays, meta = reference
     cpu = SimConfig(device=DeviceConfig(device="cpu"))
@@ -119,7 +119,7 @@ def test_slice_outputs_byte_identical_to_reference(reference):
                                       err_msg=f"own plan, case {CASES[i]}")
         sched = import_schedule(meta[i]["schedule"])
         relay_seen |= sched.num_relay > 0
-        got = bbs_broadcast(x, sched, meta[i]["num_groups"], "cpu")
+        got = broadcast(LoweredPlan(sched, meta[i]["num_groups"], "cpu"), x)
         np.testing.assert_array_equal(_bytes(got).reshape(want.shape), want,
                                       err_msg=f"imported tables, {CASES[i]}")
         assert ex.verify(x).ok

@@ -90,7 +90,7 @@ def _mesh_exe(nbytes=4096, root=5):
 
 def test_a_broadcast_opens_its_spans_in_order():
     ex = _mesh_exe()
-    ex.tables()
+    ex.lowered.tables()
     x = ex.default_payload(seed=3)
     spans.start()
     try:
@@ -273,7 +273,7 @@ def test_moved_bytes_of_an_executable_broadcast():
     moves = ex.moves()
     x = ex.default_payload()
     from repro_torch.device import runner
-    lay = runner.packet_layout(x, ex.schedule, ex.num_groups)
+    lay = ex.lowered.placement(x).lay
     buf = runner.pack(x, lay, ex.root, torch.device("cpu"))
     before = (rs.moved_bytes, rs.relay_bytes)
     rs.permute_rounds(buf, moves)

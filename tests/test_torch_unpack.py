@@ -210,9 +210,10 @@ def test_unpack_equals_two_copies_on_real_plans(no_nvcc, fabric):
         ex = model.executable(root=1, nbytes=nbytes, algo=algo, config=cpu)
         x = torch.from_numpy(np.random.default_rng(nbytes).integers(
             0, 256, nbytes, dtype=np.uint8)).view(dtype)
-        lay = runner.packet_layout(x, ex.schedule, ex.num_groups)
-        buf = runner.pack(x, lay, ex.root, torch.device("cpu"))
-        runner.run_cycles(buf, ex.tables())
+        low = ex.lowered                 # the tables' staged layout
+        plc = low.placement(x)
+        lay, buf = plc.lay, low.start(x, plc, None)
+        low.cycles(buf, plc, None)
         for b in (buf, _random_buf(lay, nbytes)):
             out = runner.unpack(b, lay, x).view(torch.uint8).reshape(
                 lay.n, -1)

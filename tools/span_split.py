@@ -38,8 +38,10 @@ It reports, as one JSON line on stdout (and in ``--out``):
   ``round_step.relay_bytes`` beside it, ``runner.unpack``'s share of the
   HBM peak on the bytes ``unpack_rows`` moved, by shape
   (``unpack_hbm_pct``, with the window's in-place and staged counts and
-  ``unpack_bytes_by_shape`` beside it), and the readings the benchmark
-  takes by kernel name beside them;
+  ``unpack_bytes_by_shape`` beside it), the host microseconds from a
+  request's start to the runtime call that launched its K1
+  (``k1_launch_us_p50``, ``k1_launch_us_mean``), and the readings the
+  benchmark takes by kernel name beside them;
 * ``span_ns``: the host cost of one span, off and on.
 
 Times come from the profiler's clock. ``bcastbench.devtrace.Tracer`` ties
@@ -254,6 +256,9 @@ def split(ops: List[tuple], window: List[spans.Span], served: List[dict],
         launch is None or tl.at(launch) is None
         or tl.at(launch).name == "run"))
     k1_named = sum(d for n, t, d, _ in ops if "permute_rounds" in n)
+    to_k1 = [(launch - req_tl.at(launch).t0) * 1e6
+             for n, t, d, launch in ops if "permute_rounds" in n
+             and launch is not None and req_tl.at(launch) is not None]
     runner_named = sum(d for n, t, d, _ in ops if in_request(t)
                        and "permute_rounds" not in n)
     gaps, t = [], start
@@ -288,6 +293,8 @@ def split(ops: List[tuple], window: List[spans.Span], served: List[dict],
         "idle_by_span_s": dict(idle_by),
         "idle_by_midpoint_s": dict(idle_mid),
         "run_idle_us": in_run / n * 1e6,
+        "k1_launch_us_p50": harness.percentile(to_k1, 50) if to_k1 else None,
+        "k1_launch_us_mean": statistics.fmean(to_k1) if to_k1 else None,
         "per_shape_dev_ms": {k: {p: v[p] / v["requests"] * 1e3
                                  for p in REQUEST_PARTS}
                              for k, v in per_shape.items() if v["requests"]},
@@ -352,7 +359,7 @@ def build(cell, seed: int, device: torch.device) -> dict:
     bytes_per = {}
     for shape, ex in exes.items():
         x = pool[shape[1]][0]
-        lay = runner.packet_layout(x, ex.schedule, ex.num_groups)
+        lay = ex.lowered.placement(x).lay
         if cuda:
             mv = ex.moves()
             bytes_per[shape] = mv.moved_bytes(0, mv.num_subrounds,
