@@ -22,7 +22,8 @@ Phases, each of which exits non-zero on failure:
    payloads, and a buffer over 2**31 bytes; then ``permute_rounds`` against
    ``permute_rounds_ref``: random sequences of 1, 7 and 64 sub-rounds with
    sub-rounds of count 0, n = 1, float32 and bfloat16 payloads, the main
-   path's buffer over 2**32 bytes, two launches bit-identical;
+   path's buffer over 2**32 bytes, two launches bit-identical, and the same
+   moves by dependency phase;
 3. the broadcast path: ``repro_torch.api.compile(mesh2d(16, 16)).executable(
    root=0, nbytes=16 MiB)`` on cuda -- 256 virtual devices, verified bit-exact
    on every device, in exactly one ``permute_rounds`` launch running d x
@@ -32,15 +33,19 @@ Phases, each of which exits non-zero on failure:
    ``verify`` and in ``run``); then on that placement, on random
    allocations, ``fill_inplace`` byte-equal to ``fill_ref``, K1 at the
    placement's byte offsets to ``permute_rounds_ref`` over its first 64
-   sub-rounds, and ``unpack_tail`` to ``tail_ref``;
+   sub-rounds and, by dependency phase, over all of them, and
+   ``unpack_tail`` to ``tail_ref``; the plan's phases beside its
+   sub-rounds;
 4. small broadcasts (ring 8, hypercube 3; bbs and bine_tree; roots 0 and 3;
    bfloat16) on the card, each verified and held against the CPU run;
 5. K1's timing at the broadcast's shape: the old design per launch (a CUDA
    graph of the 2,156 ``permute_step`` launches, so host launch cost is
    left out; and their eager loop), the new one (``measure()``: one
-   ``permute_rounds`` launch a broadcast, min of 3; its barrier-only time,
-   the same launch with every count 0; the wrapper's host time; these on
-   the in-place allocation), the bound (bytes moved over the card's memory
+   ``permute_rounds`` launch a broadcast by phase, min of 3; the same
+   launch a step a sub-round; its barrier-only time, a launch of the
+   sub-rounds with every count 0; the copy loop's TB/s on the plan's
+   largest phase alone; the wrapper's host time; these on the in-place
+   allocation), the bound (bytes moved over the card's memory
    rate), the plain versions and the ``index_select``/``index_copy_``
    yardstick; then the main path's ``unpack_tail`` and ``fill_inplace``
    held and timed on its placement against ``tail_ref`` and ``fill_ref``,
@@ -566,20 +571,30 @@ def phase_rounds_vs_plain(np, torch, rs):
 
     def check(buf, tabs, what, s0=0, s1=None):
         nonlocal worst
-        moves = rs.compact_moves(tabs, buf.shape[1]).to(dev)
+        host = rs.compact_moves(tabs, buf.shape[1])
+        moves = host.to(dev)
         want = rs.permute_rounds_ref(buf.clone(), moves, s0, s1)
         got = rs.permute_rounds(buf.clone(), moves, s0, s1)
         again = rs.permute_rounds(buf.clone(), moves, s0, s1)
+        # the same moves by dependency phase (a whole range runs by phase)
+        phased = rs.with_phases(host, buf.shape[2]).to(dev)
+        by_phase = rs.permute_rounds(buf.clone(), phased, s0, s1)
         torch.cuda.synchronize()
-        worst = max(worst, max_byte_diff(torch, got, want))
+        worst = max(worst, max_byte_diff(torch, got, want),
+                    max_byte_diff(torch, by_phase, want))
         if not torch.equal(got, want):
             fail(f"permute_rounds differs from plain version: {what}")
         if not torch.equal(again, got):
             fail(f"two permute_rounds launches differ: {what}")
+        if not torch.equal(by_phase, want):
+            fail(f"permute_rounds by phase differs from plain version: "
+                 f"{what}")
         idle = int((moves.counts[s0:s1] == 0).sum())
-        log(f"[rounds] bit-exact, two launches identical: {what} "
-            f"({idle} sub-rounds of count 0)")
-        del want, got, again
+        steps = phased.phases.count if phased.phases and s1 is None \
+            else "no"
+        log(f"[rounds] bit-exact, two launches identical, by phase too "
+            f"({steps} phases): {what} ({idle} sub-rounds of count 0)")
+        del want, got, again, by_phase
 
     def tables(n, rows, count):
         tabs = np.stack([rs.random_table(rng, n, rows)
@@ -633,7 +648,7 @@ def phase_main(torch, rs, api, T):
     s = ex.schedule
     ex.moves()                       # compacted once per plan, set-up
     from repro_torch.device import runner
-    rs.launches = rs.rounds_launches = rs.subrounds = 0
+    rs.launches = rs.rounds_launches = rs.subrounds = rs.phases = 0
     runner.unpack_launches = runner.inplace_runs = runner.fill_launches = 0
     t0 = time.perf_counter()
     chk = ex.verify(x)
@@ -641,6 +656,7 @@ def phase_main(torch, rs, api, T):
     t_verify = time.perf_counter() - t0
     launches, subrounds, steps = rs.rounds_launches, rs.subrounds, \
         rs.launches
+    phases = rs.phases
     unpacks = runner.unpack_launches
     out = ex.run(x)
     plc = ex.lowered.placement(x)
@@ -667,6 +683,11 @@ def phase_main(torch, rs, api, T):
              f"{subrounds} sub-rounds (and permute_step {steps} times), "
              f"expected 1 launch for d x cycles = {ex.num_subrounds} "
              f"sub-rounds and none")
+    moves = ex.moves()
+    if moves.phases is None or phases != plc.at.num_phases or \
+            not phases < subrounds:
+        fail(f"main path ran {phases} steps for {subrounds} sub-rounds, "
+             f"expected its {plc.at.num_phases} dependency phases")
     if runner.fill_launches != 2:
         fail(f"main path launched fill_inplace {runner.fill_launches} times "
              f"in 2 broadcasts, expected 1 a broadcast")
@@ -676,8 +697,11 @@ def phase_main(torch, rs, api, T):
     log(f"[main] mesh2d 16x16, {MAIN_NBYTES} B float32 from root 0: "
         f"candidate {ex.candidate}, K={s.K}, m={ex.num_groups}, d={s.d}, "
         f"cycles={s.num_cycles(ex.num_groups)}, relay rows={s.num_relay}, "
-        f"{launches} permute_rounds launch for {subrounds} sub-rounds, "
-        f"{int(ex.moves().counts.sum())} row moves, in place: "
+        f"{launches} permute_rounds launch for {subrounds} sub-rounds in "
+        f"{phases} dependency phases (the largest "
+        f"{int((moves.phases.offs[1:] - moves.phases.offs[:-1]).max())} "
+        f"moves), "
+        f"{int(moves.counts.sum())} row moves, in place: "
         f"{plc.full} rows a device in the output, {plc.scratch} in "
         f"scratch, a tail of {plc.tail} B; {unpacks} unpack_rows launch a "
         f"broadcast; allocation {plc.alloc_bytes} B (staged buffer "
@@ -688,7 +712,8 @@ def phase_main(torch, rs, api, T):
     log(f"[main] on the main path's placement, random allocations of "
         f"{plc.alloc_bytes} B: fill_inplace byte-equal to fill_ref, K1 on "
         f"its byte offsets to permute_rounds_ref over sub-rounds "
-        f"[0, {held['subrounds']}), unpack_tail to tail_ref")
+        f"[0, {held['subrounds']}) and by phase over all {subrounds}, "
+        f"unpack_tail to tail_ref")
     return ex, x, lay, plc, launches, subrounds, steps, unpacks, secs
 
 
@@ -697,8 +722,9 @@ def main_layout_vs_plain(torch, rs, runner, moves, plc, x, root):
     version on the main path's placement, byte for byte, on random
     allocations (so no byte is right by chance): ``fill_inplace`` against
     ``fill_ref``, K1 at the placement's byte offsets (``plc.at``) against
-    ``permute_rounds_ref`` over the first ``MAIN_PREFIX`` sub-rounds, and
-    ``unpack_tail`` against ``tail_ref``."""
+    ``permute_rounds_ref`` over the first ``MAIN_PREFIX`` sub-rounds (a
+    step a sub-round) and over all of them (by phase), and ``unpack_tail``
+    against ``tail_ref``."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(29)
 
@@ -721,6 +747,12 @@ def main_layout_vs_plain(torch, rs, runner, moves, plc, x, root):
     rs.permute_rounds_ref(want, moves, 0, s1, at=plc.at)
     rs.permute_rounds(alloc, moves, 0, s1, at=plc.at)
     held(f"K1 on the placement's offsets, sub-rounds [0, {s1})", alloc, want)
+    del alloc, want
+    alloc = rand()
+    want = rs.permute_rounds_ref(alloc.clone(), moves, at=plc.at)
+    rs.permute_rounds(alloc, moves, at=plc.at)
+    held(f"K1 on the placement's offsets by phase, all "
+         f"{moves.num_subrounds} sub-rounds", alloc, want)
     del alloc, want
     alloc = rand()
     want = alloc.clone()
@@ -763,8 +795,10 @@ def phase_timing(np, torch, rs, runner, ex, x, lay, plc, rate, secs):
     """K1 over the main path's whole cycle loop, both designs on one card:
     the old one launch per sub-round (``permute_step`` in a CUDA graph and
     in an eager loop, per launch), the new one launch per broadcast
-    (``measure()``'s ``secs``; the same launch over the same sub-rounds with
-    every count 0, the barriers alone; the wrapper's host time), the bytes
+    (``measure()``'s ``secs``, by dependency phase; the same launch a step a
+    sub-round; the same sub-rounds with every count 0, the barriers alone;
+    the plan's largest phase alone, the copy loop's rate; the wrapper's
+    host time), the bytes
     bound, the plain versions and the ``index_select``/``index_copy_``
     yardstick. The new design's readings are taken where the main path
     runs it, on the in-place allocation at the placement's byte offsets
@@ -805,10 +839,31 @@ def phase_timing(np, torch, rs, runner, ex, x, lay, plc, rate, secs):
     with low.launching() as stream:
         alloc = low.start(x, plc, stream)
     idle = moves.idle()
-    idle_at = dataclasses.replace(plc.at, pairs=plc.at.pairs[:0])
+    idle_at = rs.RowOffsets(plc.at.pairs[:0], plc.at.row_bytes, plc.at.span)
     barrier_ms = min(cuda_ms(lambda: rs.permute_rounds(alloc, idle,
                                                        at=idle_at))
                      for _ in range(3))
+    by_sub = dataclasses.replace(moves, phases=None)
+    subround_ms = min(cuda_ms(lambda: rs.permute_rounds(alloc, by_sub,
+                                                        at=plc.at))
+                      for _ in range(3))
+    # the copy loop on the plan's largest phase alone: one step
+    ph = moves.phases
+    big = int(np.argmax(np.diff(ph.offs)))
+    pick = ph.order[ph.offs[big]:ph.offs[big + 1]]
+    one = plc.at.pairs[pick]
+    one_moves = dataclasses.replace(
+        moves, pairs=moves.pairs[pick],
+        offs=torch.tensor([0, len(one)], device=dev),
+        counts=np.array([len(one)]), moves_cum=np.array([0, len(one)]),
+        zeros_cum=np.array([0, int((one[:, 1] < 0).sum())]),
+        relay_cum=np.zeros(2, dtype=np.int64),
+        relay_zeros_cum=np.zeros(2, dtype=np.int64), phases=None)
+    one_at = rs.RowOffsets(one, plc.at.row_bytes, plc.at.span)
+    one_bytes = one_moves.moved_bytes(0, 1, plc.at.row_bytes)
+    one_ms = min(cuda_ms(lambda: rs.permute_rounds(alloc, one_moves,
+                                                   at=one_at))
+                 for _ in range(5))
     reps = 10
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -850,8 +905,12 @@ def phase_timing(np, torch, rs, runner, ex, x, lay, plc, rate, secs):
         f"cooperative grid of {blocks} blocks x {threads} threads): "
         f"{ms!r} ms a broadcast (measure(), min of 3), {ms / nl * 1e3!r} us "
         f"a sub-round, {bound_ms / ms!r} of its {bound_ms!r} ms bound "
-        f"({nbytes} B at {rate / 1e12:.2f} TB/s); barrier-only (every count "
-        f"0) {barrier_ms!r} ms, {barrier_ms / nl * 1e3!r} us a sub-round; "
+        f"({nbytes} B at {rate / 1e12:.2f} TB/s), in {ph.count} dependency "
+        f"phases; a step a sub-round {subround_ms!r} ms; barrier-only "
+        f"({nl} sub-rounds, every count 0) {barrier_ms!r} ms, "
+        f"{barrier_ms / nl * 1e3!r} us a sub-round; its largest phase alone "
+        f"({len(one)} moves, {one_bytes} B) {one_ms!r} ms, "
+        f"{one_bytes / one_ms / 1e9!r} TB/s; "
         f"the wrapper's host time {host_ms!r} ms a call; plain "
         f"(permute_rounds_ref) {rounds_plain_ms!r} ms; all on the in-place "
         f"allocation; {runs} runs of conflict-free consecutive sub-rounds")
@@ -864,6 +923,8 @@ def phase_timing(np, torch, rs, runner, ex, x, lay, plc, rate, secs):
         f"index_copy_ {library_ms!r} ms; permute_rounds takes "
         f"{ms / step_graph_ms!r} of the graph's time")
     return dict(ms=ms, barrier_ms=barrier_ms, host_ms=host_ms,
+                phases=ph.count, subround_ms=subround_ms,
+                phase_tbps=one_bytes / one_ms / 1e9,
                 plain_ms=rounds_plain_ms, bound_ms=bound_ms, bytes=nbytes,
                 library_ms=library_ms, blocks=blocks, threads=threads,
                 step_ms=step_graph_ms / nl, step_graph_ms=step_graph_ms,

@@ -97,7 +97,8 @@ class ExecutablePlan:
         low = self.__dict__.get("_lowered")
         if low is None:
             low = self._lowered = runner.LoweredPlan(
-                self.schedule, self.num_groups, self.device.device)
+                self.schedule, self.num_groups, self._payload_meta(),
+                self.device.device)
         return low
 
     @property
@@ -128,8 +129,7 @@ class ExecutablePlan:
         request's output, so they split no block the requests reuse."""
         low = self.lowered
         if low.cuda:
-            low.placement(torch.empty(self._payload_numel(), device="meta",
-                                      dtype=getattr(torch, self.device.dtype)))
+            low.placement(self._payload_meta())
         return low.moves()
 
     def run(self, x: torch.Tensor, group=None) -> torch.Tensor:
@@ -169,6 +169,12 @@ class ExecutablePlan:
         missing = tuple(v for v in required if not torch.equal(outb[v], ref))
         return DeviceDelivery(ok=not missing, required=required,
                               missing=missing)
+
+    def _payload_meta(self) -> torch.Tensor:
+        """The plan's payload, ``nbytes`` of ``device.dtype``, with no
+        storage."""
+        return torch.empty(self._payload_numel(), device="meta",
+                           dtype=getattr(torch, self.device.dtype))
 
     def _payload_numel(self) -> int:
         """Elements of ``device.dtype`` in the plan's ``nbytes``."""

@@ -25,19 +25,31 @@ kernel ``csrc/permute_step.cu`` on a CUDA tensor and runs the plain version
 
 ``permute_rounds`` runs a whole sequence of sub-rounds in one launch of
 ``csrc/permute_rounds.cu`` (a persistent grid with a grid-wide barrier
-between sub-rounds), from the compacted moves of ``compact_moves``: for
-each sub-round only the ``(dst_row, src_row)`` pairs of its writing
-receivers, as row indexes into the ``[n * rows, row_bytes]`` view of the
-buffer. The kernel reads them as byte offsets (``RowOffsets``, from
-``Moves.offsets``): by default those of that buffer, ``row *
-row_bytes``, or those of any placement of the rows in one flat allocation
-(the runner's in-place layout puts most of them straight into the stacked
-output). Its plain version ``permute_rounds_ref`` applies them sub-round by
-sub-round. ``rounds_launches`` counts its launches and ``subrounds`` the
-sub-rounds they ran; ``moved_bytes`` counts the HBM bytes of rows that
-every ``permute_rounds`` call, on the card or the plain path, reads and
-writes (``Moves.moved_bytes``), and ``relay_bytes`` the part of them moved
-by moves that read or write a relay row (``Moves.relay_bytes``).
+between steps), from the compacted moves of ``compact_moves``: for each
+sub-round only the ``(dst_row, src_row)`` pairs of its writing receivers,
+as row indexes into the ``[n * rows, row_bytes]`` view of the buffer. The
+kernel reads them as byte offsets (``RowOffsets``, from
+``Moves.offsets``): by default those of that buffer, ``row * row_bytes``,
+or those of any placement of the rows in one flat allocation (the runner's
+in-place layout puts most of them straight into the stacked output).
+
+A launch over all of a plan's sub-rounds runs its moves by dependency
+phase when the moves carry their phase table (``with_phases``: taken in
+sub-round order, each move goes to the first phase after those its rows'
+read-after-write, write-after-write and write-after-read hazards ask
+that has room, a phase holding at most ``phase_cap`` moves; the host pass
+``phase_table`` in the kernel's library, plain version
+``phase_table_ref``), with one barrier between phases; any other range,
+and moves without the table, runs a step a sub-round. The bytes are the
+same either way. The plain version ``permute_rounds_ref`` applies the
+moves sub-round by sub-round, always.
+
+``rounds_launches`` counts the kernel's launches, ``subrounds`` the
+sub-rounds they ran and ``phases`` the steps they ran them in;
+``moved_bytes`` counts the HBM bytes of rows that every ``permute_rounds``
+call, on the card or the plain path, reads and writes
+(``Moves.moved_bytes``), and ``relay_bytes`` the part of them moved by
+moves that read or write a relay row (``Moves.relay_bytes``).
 """
 
 from __future__ import annotations
@@ -52,6 +64,7 @@ import torch
 launches = 0          # kernel launches of permute_step since the last reset
 rounds_launches = 0   # kernel launches of permute_rounds since the last reset
 subrounds = 0         # sub-rounds those permute_rounds launches ran
+phases = 0            # steps they ran them in: phases, or sub-rounds
 moved_bytes = 0       # row bytes permute_rounds calls read and wrote
 relay_bytes = 0       # the part of them moved by moves touching a relay row
 
@@ -164,7 +177,9 @@ class Moves:
     ``moves_cum`` and ``zeros_cum`` (int64 ``[S + 1]``, on the host) are
     prefix sums of the pairs and of the zero writes by sub-round;
     ``relay_cum`` and ``relay_zeros_cum`` the same of the pairs that read
-    or write a relay row (``compact_moves``' ``packets`` and on)."""
+    or write a relay row (``compact_moves``' ``packets`` and on).
+    ``phases``: the dependency phases a launch over every sub-round runs
+    the pairs in (``with_phases``), or None: a step a sub-round."""
 
     pairs: torch.Tensor
     offs: torch.Tensor
@@ -175,6 +190,7 @@ class Moves:
     zeros_cum: np.ndarray
     relay_cum: np.ndarray
     relay_zeros_cum: np.ndarray
+    phases: Optional["Phases"] = None
     _staged: Dict[int, "RowOffsets"] = dataclasses.field(
         default_factory=dict, init=False, repr=False, compare=False)
 
@@ -187,8 +203,11 @@ class Moves:
         return self.pairs.device
 
     def to(self, device) -> "Moves":
+        ph = self.phases
+        if ph is not None:
+            ph = dataclasses.replace(ph, order=ph.order.to(device))
         return dataclasses.replace(self, pairs=self.pairs.to(device),
-                                   offs=self.offs.to(device))
+                                   offs=self.offs.to(device), phases=ph)
 
     def offsets(self, row_bytes: int,
                 row_at: Optional[np.ndarray] = None) -> "RowOffsets":
@@ -197,7 +216,8 @@ class Moves:
         ``row_at[i]`` (int64, each a multiple of 16), or by default at
         ``i * row_bytes``, the ``[n, rows, row_bytes]`` buffer's rows (made
         once per ``row_bytes`` and kept). The rows must not overlap; that
-        is the caller's to keep."""
+        is the caller's to keep. With ``phases`` they come in phase order
+        too, each phase cut to at most 2**30 chunks of 16 bytes."""
         if row_bytes <= 0 or row_bytes % 16:
             raise ValueError(f"K1 moves 16-byte chunks: row_bytes "
                              f"{row_bytes} must be a positive multiple of "
@@ -207,7 +227,7 @@ class Moves:
             if at is None:
                 pairs = torch.where(self.pairs >= 0, self.pairs * row_bytes,
                                     -1)
-                at = self._staged[row_bytes] = RowOffsets(
+                at = self._staged[row_bytes] = self._row_offsets(
                     pairs, row_bytes, self.n * self.rows * row_bytes)
             return at
         row_at = np.asarray(row_at, dtype=np.int64)
@@ -221,7 +241,16 @@ class Moves:
         pairs = torch.where(self.pairs >= 0,
                             table[self.pairs.clamp(min=0)], -1)
         span = int(row_at.max()) + row_bytes if row_at.size else 0
-        return RowOffsets(pairs, row_bytes, span)
+        return self._row_offsets(pairs, row_bytes, span)
+
+    def _row_offsets(self, pairs: torch.Tensor, row_bytes: int,
+                     span: int) -> "RowOffsets":
+        ph = self.phases
+        if ph is None:
+            return RowOffsets(pairs, row_bytes, span)
+        offs = split_phases(ph.offs, 2 ** 30 // (row_bytes // 16))
+        return RowOffsets(pairs, row_bytes, span, pairs[ph.order],
+                          torch.from_numpy(offs).to(self.device))
 
     def idle(self) -> "Moves":
         """The same sub-rounds with no move in any: ``permute_rounds`` on
@@ -230,7 +259,8 @@ class Moves:
         return dataclasses.replace(
             self, pairs=self.pairs[:0], offs=torch.zeros_like(self.offs),
             counts=np.zeros_like(self.counts), moves_cum=zero,
-            zeros_cum=zero, relay_cum=zero, relay_zeros_cum=zero)
+            zeros_cum=zero, relay_cum=zero, relay_zeros_cum=zero,
+            phases=None)
 
     def moved_bytes(self, s0: int, s1: int, row_bytes: int) -> int:
         """HBM bytes of rows that sub-rounds ``[s0, s1)`` read and write on
@@ -255,11 +285,50 @@ class RowOffsets:
     (``Moves.offsets``): ``pairs`` int64 ``[M, 2]``, the moves'
     ``(dst, src)`` as byte offsets, multiples of 16 (``src`` -1: a zero
     write), on the moves' device; every row ``row_bytes`` long and inside
-    the allocation's first ``span`` bytes."""
+    the allocation's first ``span`` bytes. For moves with phases,
+    ``phase_pairs`` holds the same offsets in phase order and
+    ``phase_offs`` (int64, on the device) each phase's range of them, a
+    phase of more than 2**30 chunks cut into pieces."""
 
     pairs: torch.Tensor
     row_bytes: int
     span: int
+    phase_pairs: Optional[torch.Tensor] = None
+    phase_offs: Optional[torch.Tensor] = None
+
+    @property
+    def num_phases(self) -> int:
+        return 0 if self.phase_offs is None else len(self.phase_offs) - 1
+
+
+@dataclasses.dataclass(frozen=True)
+class Phases:
+    """The dependency phases of a ``Moves``' pairs (``phase_table``):
+    ``order`` int64 ``[M]`` on the moves' device, the pairs' indexes in
+    phase order (a permutation; a phase's pairs in sub-round order), and
+    ``offs`` int64 ``[D + 1]`` on the host, phase p's at
+    ``order[offs[p]:offs[p + 1]]``."""
+
+    order: torch.Tensor
+    offs: np.ndarray
+
+    @property
+    def count(self) -> int:
+        return len(self.offs) - 1
+
+
+def split_phases(offs: np.ndarray, cap: int) -> np.ndarray:
+    """Phase offsets ``offs`` with every phase of more than ``cap`` moves
+    cut into consecutive pieces of at most ``cap`` (at least 1): legal, as
+    a part of a phase reads no row that the phase writes."""
+    cap = max(1, cap)
+    counts = np.diff(offs)
+    pieces = np.maximum(1, -(-counts // cap))
+    if (pieces == 1).all():
+        return offs
+    nth = np.arange(int(pieces.sum())) - np.repeat(np.cumsum(pieces) - pieces,
+                                                   pieces)
+    return np.append(np.repeat(offs[:-1], pieces) + nth * cap, offs[-1])
 
 
 def _prefix(per_subround: np.ndarray) -> np.ndarray:
@@ -301,6 +370,90 @@ def compact_moves(tabs: np.ndarray, rows: int,
                  relay_zeros_cum=_prefix((relay & zero).sum(axis=1)))
 
 
+# a phase's moves: enough rows to write PHASE_BYTES, so that the next phase
+# finds most of what it reads in the card's 50 MB L2, and at least
+# PHASE_ROWS rows, below which one more barrier costs more than that saves
+# (both measured on an H100 over the cells' plans, PERF.md)
+PHASE_BYTES = 16 << 20
+PHASE_ROWS = 320
+
+
+def phase_cap(row_bytes: int) -> int:
+    """The moves a phase may hold on rows of ``row_bytes``."""
+    return max(-(-PHASE_BYTES // row_bytes), PHASE_ROWS)
+
+
+def phase_table_ref(moves: Moves, cap: int = 0) -> Phases:
+    """The plain version of ``phase_table``, one move at a time in sub-round
+    order: a move goes to the first phase after the last that wrote its
+    source row, wrote its destination row or read its destination row,
+    that holds fewer than ``cap`` moves (any, for ``cap`` 0); the pairs
+    ordered by phase, stably."""
+    pairs = moves.pairs.cpu().numpy()
+    rows = moves.n * moves.rows
+    if len(pairs) and (pairs[:, 0].min() < 0 or pairs.max() >= rows
+                       or pairs[:, 1].min() < -1):
+        raise ValueError(f"a move names a row outside [0, {rows})")
+    wrote, read = [-1] * rows, [-1] * rows
+    wrote_in, read_in = [-1] * rows, [-1] * rows
+    count = []
+    phase = np.zeros(len(pairs), dtype=np.int64)
+    for s in range(moves.num_subrounds):
+        for i in range(moves.moves_cum[s], moves.moves_cum[s + 1]):
+            d, r = int(pairs[i, 0]), int(pairs[i, 1])
+            if s in (wrote_in[d], read_in[d]) or \
+                    (r >= 0 and wrote_in[r] == s):
+                raise ValueError(f"sub-round {s} reads a row that it writes "
+                                 f"or writes a row twice")
+            p = max(wrote[d], read[d], wrote[r] if r >= 0 else -1) + 1
+            while cap > 0 and p < len(count) and count[p] >= cap:
+                p += 1
+            if p == len(count):
+                count.append(0)
+            count[p] += 1
+            phase[i] = p
+            wrote[d], wrote_in[d] = p, s
+            if r >= 0:
+                read[r], read_in[r] = max(read[r], p), s
+    order = np.argsort(phase, kind="stable")
+    return Phases(order=torch.from_numpy(order).to(moves.device),
+                  offs=_prefix(np.array(count, dtype=np.int64)))
+
+
+def phase_table(moves: Moves, cap: int = 0) -> Phases:
+    """``phase_table_ref``'s result from the host pass
+    ``permute_rounds_phases`` in the kernel's library
+    (``csrc/permute_rounds.cu``, built on first use), which also orders the
+    pairs by phase. Raises ``ValueError`` when a sub-round reads a row that
+    it writes or writes a row twice, which K1 needs never happens."""
+    pairs = np.ascontiguousarray(moves.pairs.cpu().numpy(), dtype=np.int64)
+    sub = np.ascontiguousarray(moves.moves_cum, dtype=np.int64)
+    rows = moves.n * moves.rows
+    order = np.empty(len(pairs), dtype=np.int64)
+    offs = np.empty(len(pairs) + 1, dtype=np.int64)
+    count = _rounds_kernel().permute_rounds_phases(
+        pairs.ctypes.data, len(pairs), sub.ctypes.data, moves.num_subrounds,
+        rows, cap, order.ctypes.data, offs.ctypes.data)
+    if count == -2:
+        raise ValueError(f"a move names a row outside [0, {rows})")
+    if count < 0:
+        raise ValueError("a sub-round reads a row that it writes or writes "
+                         "a row twice")
+    return Phases(order=torch.from_numpy(order).to(moves.device),
+                  offs=offs[:count + 1].copy())
+
+
+def with_phases(moves: Moves, row_bytes: int) -> Moves:
+    """``moves`` with their dependency phases (``phase_table``, capped for
+    rows of ``row_bytes`` by ``phase_cap``), which a launch over all of
+    their sub-rounds runs; moves with no pair come back as they are (a step
+    a sub-round: the barriers alone)."""
+    if not len(moves.pairs):
+        return moves
+    return dataclasses.replace(
+        moves, phases=phase_table(moves, phase_cap(row_bytes)))
+
+
 def _span(moves: Moves, s0: int, s1: Optional[int]) -> Tuple[int, int]:
     s1 = moves.num_subrounds if s1 is None else s1
     if not 0 <= s0 <= s1 <= moves.num_subrounds:
@@ -330,7 +483,8 @@ def _check_rounds(buf: torch.Tensor, moves: Moves,
                              f"least {at.span} bytes, got {buf.dtype} "
                              f"{tuple(buf.shape)}")
         if tuple(at.pairs.shape) != tuple(moves.pairs.shape) or \
-                at.pairs.device != buf.device:
+                at.pairs.device != buf.device or \
+                (moves.phases is not None and at.phase_pairs is None):
             raise ValueError("the row offsets are not the moves' or lie on "
                              "another device than the buffer")
         row_bytes = at.row_bytes
@@ -380,6 +534,11 @@ def _rounds_kernel():
         lib.permute_rounds.restype = ctypes.c_int
         lib.permute_rounds_blocks.argtypes = []
         lib.permute_rounds_blocks.restype = ctypes.c_int
+        lib.permute_rounds_phases.argtypes = [
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+            ctypes.c_void_p, ctypes.c_void_p]
+        lib.permute_rounds_phases.restype = ctypes.c_longlong
         _rounds_lib = lib
     return _rounds_lib
 
@@ -414,9 +573,11 @@ def permute_rounds(buf: torch.Tensor, moves: Moves, s0: int = 0,
     ``buf`` (``launch_rounds``, after every check), ``permute_rounds_ref``
     for a CPU ``buf``. ``buf`` is the ``[n, rows, row_bytes]`` buffer, or
     with ``at`` (``Moves.offsets``) a flat uint8 allocation that holds the
-    rows at those byte offsets. A refused launch raises; nothing falls back
-    to one launch per sub-round. Either way ``moved_bytes`` and
-    ``relay_bytes`` grow by the bytes the sub-rounds move."""
+    rows at those byte offsets. The whole range of moves with phases runs
+    by phase, any other a step a sub-round (module docstring). A refused
+    launch raises; nothing falls back to one launch per sub-round. Either
+    way ``moved_bytes`` and ``relay_bytes`` grow by the bytes the
+    sub-rounds move."""
     row_bytes = _check_rounds(buf, moves, at)
     s0, s1 = _span(moves, s0, s1)
     if buf.device.type == "cpu":
@@ -433,9 +594,9 @@ def permute_rounds(buf: torch.Tensor, moves: Moves, s0: int = 0,
     if s0 == s1 or moves.n == 0 or row_bytes == 0:
         return buf
     if not fits_launch(moves, row_bytes, s0, s1):
-        raise ValueError(f"a sub-round moves more than 2**30 chunks of 16 "
-                         f"bytes ({int(moves.counts[s0:s1].max())} rows of "
-                         f"{row_bytes // 16})")
+        raise ValueError(f"a step moves more than 2**30 chunks of 16 bytes "
+                         f"({int(moves.counts[s0:s1].max())} rows of "
+                         f"{row_bytes // 16} in a sub-round)")
     if at is None:
         at = moves.offsets(row_bytes)
     with torch.cuda.device(buf.device):
@@ -446,11 +607,21 @@ def permute_rounds(buf: torch.Tensor, moves: Moves, s0: int = 0,
 
 def fits_launch(moves: Moves, row_bytes: int, s0: int = 0,
                 s1: Optional[int] = None) -> bool:
-    """Whether every sub-round of ``[s0, s1)`` moves at most 2**30 chunks of
-    16 bytes, as one launch of the kernel needs."""
+    """Whether every step of a launch over ``[s0, s1)`` moves at most 2**30
+    chunks of 16 bytes, as the kernel needs: every sub-round, or by phase
+    every row (``Moves.offsets`` cuts a larger phase)."""
     s1 = moves.num_subrounds if s1 is None else s1
-    return s0 == s1 or \
-        int(moves.counts[s0:s1].max()) * (row_bytes // 16) <= 2 ** 30
+    chunks = row_bytes // 16
+    if s0 == s1:
+        return True
+    if _by_phase(moves, s0, s1):
+        return chunks <= 2 ** 30
+    return int(moves.counts[s0:s1].max()) * chunks <= 2 ** 30
+
+
+def _by_phase(moves: Moves, s0: int, s1: int) -> bool:
+    """Whether a launch over sub-rounds ``[s0, s1)`` runs by phase."""
+    return moves.phases is not None and (s0, s1) == (0, moves.num_subrounds)
 
 
 def launch_rounds(buf: torch.Tensor, moves: Moves, s0: int, s1: int,
@@ -459,10 +630,16 @@ def launch_rounds(buf: torch.Tensor, moves: Moves, s0: int, s1: int,
     on the raw CUDA ``stream`` of the current device, with no check of its
     arguments: ``permute_rounds`` makes them, and a caller that launches
     straight holds them for every call (the runner's in-place path: once a
-    placement, ``runner.place``). Counts the launch and its bytes."""
-    global rounds_launches, subrounds
+    placement, ``runner.place``). By phase over the whole range of moves
+    with phases, else a step a sub-round. Counts the launch, its
+    sub-rounds, its steps and its bytes."""
+    global rounds_launches, subrounds, phases
+    if _by_phase(moves, s0, s1):
+        pairs, offs, p0, p1 = at.phase_pairs, at.phase_offs, 0, at.num_phases
+    else:
+        pairs, offs, p0, p1 = at.pairs, moves.offs, s0, s1
     rc = _rounds_kernel().permute_rounds(
-        buf.data_ptr(), at.pairs.data_ptr(), moves.offs.data_ptr(), s0, s1,
+        buf.data_ptr(), pairs.data_ptr(), offs.data_ptr(), p0, p1,
         at.row_bytes // 16, _workspace(buf.device, stream).data_ptr(),
         stream)
     if rc != 0:
@@ -470,6 +647,7 @@ def launch_rounds(buf: torch.Tensor, moves: Moves, s0: int, s1: int,
                            f"error {rc}")
     rounds_launches += 1
     subrounds += s1 - s0
+    phases += p1 - p0
     _count_bytes(moves, s0, s1, at.row_bytes)
 
 

@@ -56,8 +56,8 @@ layouts hold the rows:
 ``repro_torch.spans`` records, a broadcast opens ``runner.pack``,
 ``runner.cycles`` and ``runner.unpack`` around its steps, the first of a
 shape with K1's moves ``lower.place``, and a lowering ``lower.moves``
-around ``lower.slot_tables``, ``lower.compact_moves`` and
-``lower.upload``.
+around ``lower.slot_tables``, ``lower.compact_moves``, on a GPU
+``lower.phases``, and ``lower.upload``.
 
 ``binomial_broadcast`` and ``chain_broadcast`` are the reference's two
 whole-message baselines in plain torch on the same virtual mesh (the JAX
@@ -78,7 +78,7 @@ from repro_torch import spans
 from repro_torch.device.round_step import (Moves, RowOffsets,
                                            compact_moves, fits_launch,
                                            launch_rounds, permute_rounds,
-                                           permute_step)
+                                           permute_step, with_phases)
 from repro_torch.device.schedule import _NOSEND, DeviceSchedule
 
 unpack_launches = 0   # kernel launches of unpack_rows since the last reset
@@ -151,10 +151,13 @@ def build_tables(sched: DeviceSchedule, num_groups: int,
 
 
 def build_moves(sched: DeviceSchedule, num_groups: int,
-                device="cuda") -> Moves:
+                payload: torch.Tensor, device="cuda") -> Moves:
     """``slot_tables`` compacted to the moves that happen
     (``round_step.compact_moves``, the relay rows after the ``m*K`` packet
-    rows), on the device, for ``permute_rounds``."""
+    rows), on the device, for ``permute_rounds``; on a GPU with their
+    dependency phases (``round_step.with_phases``, each phase's size fitted
+    to the packet rows of ``payload``, the plan's own payload: only its
+    shape and dtype are read), which K1 runs."""
     with spans.span("lower.moves"):
         dev = resolve_device(device)
         total = num_groups * sched.K
@@ -162,6 +165,10 @@ def build_moves(sched: DeviceSchedule, num_groups: int,
             tabs = slot_tables(sched, num_groups)
         with spans.span("lower.compact_moves"):
             moves = compact_moves(tabs, total + sched.num_relay, total)
+        if dev.type == "cuda":
+            with spans.span("lower.phases"):
+                moves = with_phases(moves, packet_layout(
+                    payload, sched, num_groups).row_bytes)
         with spans.span("lower.upload"):
             return moves.to(dev)
 
@@ -545,11 +552,15 @@ class LoweredPlan:
     runner on ``device`` (module docstring); ``placements`` holds each
     payload shape's ``Placement`` by ``(x.shape, x.dtype)``. ``broadcast``
     runs its requests; ``start``, ``cycles`` and ``finish`` are its steps,
-    each given the raw CUDA stream of ``launching`` (None on the CPU)."""
+    each given the raw CUDA stream of ``launching`` (None on the CPU).
+    ``payload`` is the payload the plan is for (only its shape and dtype
+    are kept): its packet rows, ``row_bytes``, size K1's phases
+    (``build_moves``)."""
 
     def __init__(self, sched: DeviceSchedule, num_groups: int,
-                 device="cuda"):
+                 payload: torch.Tensor, device="cuda"):
         self.sched, self.num_groups, self.root = sched, num_groups, sched.root
+        self.payload = payload.to("meta")
         self.device = resolve_device(device)
         self.cuda = self.device.type == "cuda"
         self.placements: dict = {}
@@ -562,9 +573,15 @@ class LoweredPlan:
         placements made before, staged for the tables, are dropped."""
         if self._moves is None:
             self._moves = build_moves(self.sched, self.num_groups,
-                                      self.device)
+                                      self.payload, self.device)
             self.placements.clear()
         return self._moves
+
+    @property
+    def row_bytes(self) -> int:
+        """The packet row of the plan's own payload."""
+        return packet_layout(self.payload, self.sched,
+                             self.num_groups).row_bytes
 
     def tables(self) -> torch.Tensor:
         """The int32 ``[cycles, d, 5, n]`` sub-round tables on the device

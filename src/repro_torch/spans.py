@@ -24,7 +24,8 @@ The spans the port opens, in layer order::
     lower.executable   build_executable
       lower.schedule   each make_device_schedule inside it
     lower.moves        runner.build_moves / build_tables
-      lower.slot_tables, lower.compact_moves, lower.upload
+      lower.slot_tables, lower.compact_moves, lower.phases (a GPU's),
+      lower.upload
 
 ``Timeline`` answers which span holds a time, and ``attribute`` sums
 device seconds by the innermost span that holds each one's launch: how a

@@ -139,12 +139,12 @@ def _bytes(t):
 
 def _staged(x, sched, groups):
     """The staged path on the CPU: sub-round tables, one step each."""
-    return runner.broadcast(runner.LoweredPlan(sched, groups, "cpu"), x)
+    return runner.broadcast(runner.LoweredPlan(sched, groups, x, "cpu"), x)
 
 
-def _lowered(sched, groups):
+def _lowered(sched, groups, x):
     """The schedule lowered on the CPU with K1's moves asked for."""
-    low = runner.LoweredPlan(sched, groups, "cpu")
+    low = runner.LoweredPlan(sched, groups, x, "cpu")
     low.moves()
     return low
 
@@ -184,7 +184,7 @@ def _inplace(low, x, poison, monkeypatch):
 def test_inplace_outputs_byte_identical_to_staged_and_reference(
         reference, case, covers, poison, monkeypatch):
     x, sched, groups, want = reference[case]
-    low = _lowered(sched, groups)
+    low = _lowered(sched, groups, x)
     plc = low.placement(x)
     lay, nbytes = plc.lay, x.numel() * x.element_size()
     assert plc.inplace and plc.nbytes == nbytes
@@ -212,7 +212,7 @@ def test_runner_takes_the_inplace_path_for_moves(reference, case):
     from repro_torch import spans
 
     x, sched, groups, want = reference[case]
-    low = _lowered(sched, groups)
+    low = _lowered(sched, groups, x)
     before = (runner.inplace_runs, runner.staged_runs)
     spans.start()
     try:
@@ -234,7 +234,7 @@ def test_unaligned_payload_takes_the_staged_path(reference):
     """``nbytes % 16 != 0``: a device's output would start off the 16-byte
     grid, so the rows stay staged; the moves' answer is the reference's."""
     x, sched, groups, want = reference[STAGED]
-    low = _lowered(sched, groups)
+    low = _lowered(sched, groups, x)
     assert x.numel() * x.element_size() % 16 == 4
     assert not low.placement(x).inplace
     before = (runner.inplace_runs, runner.staged_runs)
@@ -266,14 +266,14 @@ def test_plan_reading_a_row_before_writing_it_stays_staged(reference,
     every device's output: the check is what keeps the layout exact."""
     x, sched, groups, want = reference[PLANTED]
     nbytes = x.numel() * x.element_size()
-    plain = _lowered(sched, groups).placement(x)
+    plain = _lowered(sched, groups, x).placement(x)
     lay = plain.lay
     assert plain.inplace
     tabs = _planted(sched, groups, lay)
     moves = rs.compact_moves(tabs, lay.rows, lay.total)
     assert not runner.writes_first(moves, sched.root, nbytes // lay.row_bytes)
     monkeypatch.setattr(runner, "build_moves", lambda *args: moves)
-    low = _lowered(sched, groups)
+    low = _lowered(sched, groups, x)
     assert low.moves() is moves and not low.placement(x).inplace
     before = (runner.inplace_runs, runner.staged_runs)
     got = runner.broadcast(low, x)

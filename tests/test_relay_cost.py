@@ -32,7 +32,7 @@ def plan():
     ex = api.compile(T.butterfly(16)).executable(0, 64e3, config=CPU)
     x = torch.zeros(16_000)
     lay = runner.packet_layout(x, ex.schedule, ex.num_groups)
-    return lay, runner.build_moves(ex.schedule, ex.num_groups, "cpu")
+    return lay, runner.build_moves(ex.schedule, ex.num_groups, x, "cpu")
 
 
 def test_the_sets_drop_as_many_moves_a_subround(tool, plan):
@@ -40,7 +40,8 @@ def test_the_sets_drop_as_many_moves_a_subround(tool, plan):
     drops as many other moves in each sub-round as it holds, up to its
     relay moves; the prefix sums are counted from the kept pairs."""
     lay, moves = plan
-    sets = tool.variants(moves, lay.total, np.random.default_rng(3))
+    sets = tool.variants(moves, lay.total, np.random.default_rng(3),
+                         lay.row_bytes)
     full, no_relay, no_other = sets["all"], sets["no_relay"], sets["no_other"]
     assert full is moves and moves.relay_cum[-1] > 0
     assert no_relay.relay_cum[-1] == 0 and no_relay.relay_zeros_cum[-1] == 0
@@ -67,7 +68,8 @@ def test_the_sets_drop_as_many_moves_a_subround(tool, plan):
 def test_a_set_runs_on_the_plain_path(tool, plan):
     """K1's plain path takes a set and counts its bytes."""
     lay, moves = plan
-    m = tool.variants(moves, lay.total, np.random.default_rng(4))["no_other"]
+    m = tool.variants(moves, lay.total, np.random.default_rng(4),
+                      lay.row_bytes)["no_other"]
     buf = torch.zeros(moves.n, moves.rows, lay.row_bytes, dtype=torch.uint8)
     before = (rs.moved_bytes, rs.relay_bytes)
     rs.permute_rounds(buf, m)

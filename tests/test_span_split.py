@@ -261,3 +261,16 @@ def test_relay_share_by_shape(tool):
               {"root": 0, "nbytes": 8, "moved": 0, "relay": 0}]
     assert tool.relay_pct(served) == {"0/4": pytest.approx(10.0),
                                       "17/4": 0.0}
+
+
+def test_phase_share_by_shape(tool):
+    """``phase_pct``: K1's steps over its sub-rounds, by shape and over
+    all, from each request's growth of ``round_step.phases`` and
+    ``round_step.subrounds``; a shape that ran no sub-round is left out."""
+    served = [{"root": 0, "nbytes": 4, "subrounds": 1368, "phases": 170},
+              {"root": 0, "nbytes": 4, "subrounds": 1368, "phases": 170},
+              {"root": 17, "nbytes": 4, "subrounds": 705, "phases": 705},
+              {"root": 0, "nbytes": 8, "subrounds": 0, "phases": 0}]
+    assert tool.phase_pct(served) == {
+        "0/4": pytest.approx(100 * 170 / 1368), "17/4": 100.0,
+        "all": pytest.approx(100 * 1045 / 3441)}

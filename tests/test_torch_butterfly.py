@@ -66,7 +66,7 @@ def test_two_tree_broadcast_with_relay_rows_is_bit_exact(models, n, nbytes,
     assert all(torch.equal(out[v].view(torch.uint8), raw) for v in range(n))
 
     lay = runner.packet_layout(x, sched, ex.num_groups)
-    moves = runner.build_moves(sched, ex.num_groups, CPU_DEV)
+    moves = runner.build_moves(sched, ex.num_groups, x, CPU_DEV)
     assert moves.relay_cum[-1] > 0 and lay.relay == 9
     buf = runner.pack(x, lay, root, CPU_DEV)
     half = moves.num_subrounds // 2
@@ -85,7 +85,7 @@ def test_relay_bytes_after_permute_rounds(models, s0, s1):
     ex = models[32].executable(0, 64e3, config=CPU)
     x = _payload(64e3, seed=1)
     lay = runner.packet_layout(x, ex.schedule, ex.num_groups)
-    moves = runner.build_moves(ex.schedule, ex.num_groups, CPU_DEV)
+    moves = runner.build_moves(ex.schedule, ex.num_groups, x, CPU_DEV)
     end = moves.num_subrounds if s1 is None else s1
     want = _relay_count(moves, lay.total, s0, end, lay.row_bytes)
     buf = runner.pack(x, lay, 0, CPU_DEV)
@@ -106,7 +106,7 @@ def test_idle_moves_run_the_barriers_alone(models):
     ex = models[32].executable(0, 64e3, config=CPU)
     x = _payload(64e3, seed=2)
     lay = runner.packet_layout(x, ex.schedule, ex.num_groups)
-    moves = runner.build_moves(ex.schedule, ex.num_groups, CPU_DEV)
+    moves = runner.build_moves(ex.schedule, ex.num_groups, x, CPU_DEV)
     idle = moves.idle()
     assert (idle.num_subrounds, idle.n, idle.rows) == (
         moves.num_subrounds, moves.n, moves.rows)

@@ -155,7 +155,7 @@ def test_butterfly_relay_broadcast_on_card_matches_cpu(gpu, nbytes):
     buf = runner.pack(x, lay, 7, torch.device("cpu"))
     cpu0 = rs.relay_bytes
     rs.permute_rounds(buf, runner.build_moves(
-        cpu_ex.schedule, cpu_ex.num_groups, "cpu"))
+        cpu_ex.schedule, cpu_ex.num_groups, x, "cpu"))
     assert card_relay == rs.relay_bytes - cpu0 > 0
     assert torch.equal(runner.unpack_ref(buf, lay, nbytes),
                        out.cpu().reshape(32, -1).view(torch.uint8))
@@ -344,6 +344,94 @@ def _storage_bytes(t):
     st = t.untyped_storage()
     return torch.empty(0, dtype=torch.uint8, device=t.device).set_(
         st, 0, (st.nbytes(),), (1,))
+
+
+@pytest.mark.parametrize("cap", ["fitted", 5])
+@pytest.mark.parametrize("n,rows,row_bytes,count",
+                         [(64, 9, 48, 64), (1, 4, 32, 7), (3, 1, 16, 7),
+                          (256, 5, 21744, 7), (17, 33, 1008, 64),
+                          (64, 41, 6128, 64)])
+def test_rounds_kernel_by_phase_matches_plain(gpu, n, rows, row_bytes,
+                                              count, cap):
+    """K1 over a whole sequence with its phase table (``with_phases`` for
+    its rows, and phases of at most 5 moves) bit-identical to
+    ``permute_rounds_ref`` in sub-round order; the library's phase pass
+    equal to ``phase_table_ref``; ``subrounds`` grows by the sub-rounds,
+    ``phases`` by the phases."""
+    import dataclasses
+
+    from repro_torch.device import round_step as rs
+
+    rng = np.random.default_rng(n * 7 + count)
+    tabs = _rounds_tables(rng, n, rows, count)
+    moves = rs.compact_moves(tabs, rows, max(rows - 2, 1))
+    if cap == "fitted":
+        phased = rs.with_phases(moves, row_bytes)
+        cap = rs.phase_cap(row_bytes)
+    else:
+        phased = dataclasses.replace(moves, phases=rs.phase_table(moves, cap))
+    ref = rs.phase_table_ref(moves, cap)
+    assert phased.phases.offs.tolist() == ref.offs.tolist()
+    assert torch.equal(phased.phases.order, ref.order)
+    buf = _rounds_buffer(gpu, rng, n, rows, row_bytes)
+    want = rs.permute_rounds_ref(buf.clone(), moves.to(gpu))
+    before = (rs.rounds_launches, rs.subrounds, rs.phases)
+    got = rs.permute_rounds(buf.clone(), phased.to(gpu))
+    torch.cuda.synchronize()
+    assert (rs.rounds_launches - before[0], rs.subrounds - before[1],
+            rs.phases - before[2]) == (1, count, ref.count)
+    assert torch.equal(got, want)
+
+
+def _cell_topology(cell):
+    import json
+    from pathlib import Path
+
+    from repro_torch.core import topology as T
+    path = Path(__file__).resolve().parents[1] / "bcastbench" / "configs"
+    b = json.loads((path / f"{cell}.json").read_text())["build"]
+    return getattr(T, b["fn"])(*b.get("args", ()), **b.get("kwargs", {}))
+
+
+@pytest.mark.parametrize("cell", ["mesh2d-256", "dragonfly-256",
+                                  "butterfly-256"])
+def test_rounds_kernel_by_phase_on_the_cells_plans(gpu, cell):
+    """The three cells' 256-node plans at 4e6 B from roots 0 and 17: K1 by
+    phase at the in-place placement's byte offsets bit-identical to
+    ``permute_rounds_ref`` in sub-round order on a random allocation, in
+    fewer phases than sub-rounds, the library's phase table (its phases
+    fitted to the plan's rows) equal to its plain version; and a request
+    delivers the payload to every device."""
+    import dataclasses
+
+    from repro_torch import api
+    from repro_torch.device import round_step as rs
+
+    model = api.compile(_cell_topology(cell))
+    for root in (0, 17):
+        ex = model.executable(root=root, nbytes=4e6)
+        moves = ex.moves()
+        ref = rs.phase_table_ref(dataclasses.replace(moves, phases=None),
+                                 rs.phase_cap(ex.lowered.row_bytes))
+        assert moves.phases.offs.tolist() == ref.offs.tolist()
+        assert torch.equal(moves.phases.order, ref.order)
+        assert moves.phases.count < moves.num_subrounds
+        x = ex.default_payload(seed=root)
+        plc = ex.lowered.placement(x)
+        assert plc.inplace
+        g = torch.Generator(device=gpu).manual_seed(root)
+        alloc = torch.randint(0, 256, (plc.alloc_bytes,), dtype=torch.uint8,
+                              device=gpu, generator=g)
+        want = rs.permute_rounds_ref(alloc.clone(), moves, at=plc.at)
+        before = (rs.subrounds, rs.phases)
+        rs.permute_rounds(alloc, moves, at=plc.at)
+        torch.cuda.synchronize()
+        assert (rs.subrounds - before[0], rs.phases - before[1]) == (
+            moves.num_subrounds, plc.at.num_phases)
+        assert torch.equal(alloc, want)
+        del alloc, want
+        assert ex.verify(x).ok
+        torch.cuda.empty_cache()
 
 
 @pytest.mark.parametrize("stale", ["a5", "answer"])

@@ -241,3 +241,264 @@ def test_compacted_rounds_on_real_plans(fabric):
         out = runner.unpack(got, lay, x).view(torch.uint8)
         xb = x.view(torch.uint8)
         assert all(torch.equal(out[v], xb) for v in range(topo.num_nodes))
+
+
+# -- K1 by dependency phase: the phase table -------------------------------
+
+import dataclasses  # noqa: E402
+
+
+def _by_phase(buf, moves, ph, rng):
+    """The moves of ``ph`` applied phase by phase on the CPU, each phase's
+    moves one at a time in a random order: equal to the sub-rounds' bytes
+    only if no move of a phase depends on another of it. Checks that no
+    phase reads a row that one of its moves writes or writes a row
+    twice."""
+    flat = buf.view(moves.n * moves.rows, -1)
+    pairs = moves.pairs[ph.order].numpy()
+    for p in range(ph.count):
+        step = pairs[ph.offs[p]:ph.offs[p + 1]]
+        dst, src = step[:, 0], step[:, 1]
+        assert len(step) and len(set(dst.tolist())) == len(dst)
+        assert not set(dst.tolist()) & set(src[src >= 0].tolist())
+        for i in rng.permutation(len(step)):
+            flat[dst[i]] = flat[src[i]] if src[i] >= 0 else 0
+    return buf
+
+
+def _check_table(moves, ph, cap=0):
+    """``ph`` is a phase table of ``moves``: a permutation in phase order,
+    a phase's moves in sub-round order, no phase empty; with no cap at most
+    a phase a sub-round, else at most ``cap`` moves a phase."""
+    order = ph.order.numpy()
+    assert sorted(order.tolist()) == list(range(len(moves.pairs)))
+    assert ph.offs[0] == 0 and ph.offs[-1] == len(order)
+    assert (np.diff(ph.offs) > 0).all()
+    if cap:
+        assert (np.diff(ph.offs) <= cap).all()
+    else:
+        assert ph.count <= moves.num_subrounds
+    for p in range(ph.count):
+        assert (np.diff(order[ph.offs[p]:ph.offs[p + 1]]) > 0).all()
+
+
+def _random_moves(seed):
+    """Random sub-rounds with reused rows, zero writes, masked reads, relay
+    rows (the last two of each device's) and sub-rounds with no writer."""
+    rng = np.random.default_rng(1000 + seed)
+    n = int(rng.integers(1, 48))
+    rows = int(rng.integers(1, 10))
+    count = int(rng.integers(1, 60))
+    tabs = np.stack([random_table(rng, n, rows) for _ in range(count)])
+    tabs[rng.random(count) < 0.15, 4] = 0
+    return rng, rs.compact_moves(tabs, rows, max(rows - 2, 0))
+
+
+@pytest.mark.parametrize("seed", range(56))
+def test_phases_give_the_bytes_of_subround_order(seed):
+    """Applying a sequence's moves phase by phase (``phase_table_ref``, with
+    no cap on a phase's moves and with caps of 1, 2 and 7) gives the bytes
+    of ``permute_rounds_ref`` in sub-round order, on random sequences of
+    ``random_table`` sub-rounds: rows reused (WAR, WAW), zero writes,
+    masked reads, relay rows, idle sub-rounds."""
+    rng, moves = _random_moves(seed)
+    if not len(moves.pairs):
+        assert rs.with_phases(moves, 16) is moves
+        return
+    buf = torch.from_numpy(rng.integers(0, 256, (moves.n, moves.rows, 16),
+                                        dtype=np.uint8))
+    want = rs.permute_rounds_ref(buf.clone(), moves)
+    counts = []
+    for cap in (0, 7, 2, 1):
+        ph = rs.phase_table_ref(moves, cap)
+        _check_table(moves, ph, cap)
+        assert torch.equal(_by_phase(buf.clone(), moves, ph, rng), want)
+        counts.append(ph.count)
+    assert counts == sorted(counts) and counts[-1] == len(moves.pairs)
+
+
+def _plan_moves(fabric, root, nbytes=64e3):
+    from repro_torch import api
+    from repro_torch.core import topology as T
+    from repro_torch.core.simconfig import DeviceConfig, SimConfig
+
+    topo = {"ring8": lambda: T.ring(8), "mesh2d_8x8": lambda: T.mesh2d(8, 8),
+            "dragonfly64": lambda: T.dragonfly(64),
+            "butterfly32": lambda: T.butterfly(32)}[fabric]()
+    cpu = SimConfig(device=DeviceConfig(device="cpu"))
+    ex = api.compile(topo).executable(root=root, nbytes=nbytes, config=cpu)
+    return ex, ex.moves()
+
+
+@pytest.mark.parametrize("root", [0, 5])
+@pytest.mark.parametrize("fabric", ["ring8", "mesh2d_8x8", "dragonfly64",
+                                    "butterfly32"])
+def test_phases_on_real_plans(fabric, root):
+    """A plan's moves phase by phase give the bytes of the sub-rounds, and
+    the payload on every device; the CPU's lowering keeps sub-round order
+    (no phase table), and ``writes_first`` holds in phase order."""
+    from repro_torch.device import runner
+
+    ex, moves = _plan_moves(fabric, root)
+    assert moves.phases is None
+    x = ex.default_payload(seed=root)
+    lay = ex.lowered.placement(x).lay
+    assert ex.lowered.row_bytes == lay.row_bytes
+    buf = runner.pack(x, lay, ex.root, torch.device("cpu"))
+    want = rs.permute_rounds_ref(buf.clone(), moves)
+    # the plan's cap, and one that cuts its phases
+    for cap in (rs.phase_cap(lay.row_bytes), 9):
+        ph = rs.phase_table_ref(moves, cap)
+        _check_table(moves, ph, cap)
+        got = _by_phase(buf.clone(), moves, ph, np.random.default_rng(root))
+        assert torch.equal(got, want)
+    out = runner.unpack(got, lay, x).view(torch.uint8)
+    assert all(torch.equal(out[v], x.view(torch.uint8))
+               for v in range(moves.n))
+    ph = rs.phase_table_ref(moves)
+    assert ph.count < moves.num_subrounds
+    # every non-root packet row is written in an earlier phase than any
+    # phase that reads it
+    phase = np.empty(len(moves.pairs), dtype=np.int64)
+    phase[ph.order.numpy()] = np.repeat(np.arange(ph.count), np.diff(ph.offs))
+    dst, src = moves.pairs.numpy().T
+    first_w = np.full(moves.n * moves.rows, ph.count)
+    np.minimum.at(first_w, dst, phase)
+    first_r = np.full(moves.n * moves.rows, ph.count)
+    np.minimum.at(first_r, src[src >= 0], phase[src >= 0])
+    rows = np.arange(moves.n * moves.rows)
+    packet = (rows % moves.rows < lay.total) & (rows // moves.rows != root)
+    read = first_r < ph.count
+    assert (first_w[packet & read] < first_r[packet & read]).all()
+
+
+@pytest.mark.parametrize("n,iters", [(8, 32), (64, 7)])
+def test_calibration_ring_has_a_phase_a_subround(n, iters):
+    """The calibration's ring rounds repeat one table, so every sub-round
+    writes the rows the one before wrote (WAW): a phase a sub-round."""
+    import importlib
+    cal = importlib.import_module("repro_torch.device.calibrate")
+    _, moves = cal.ring_round(n, 4096, "cpu", iters)
+    ph = rs.phase_table_ref(moves)
+    assert ph.count == moves.num_subrounds == iters
+    assert ph.offs.tolist() == moves.moves_cum.tolist()
+    assert ph.order.tolist() == list(range(len(moves.pairs)))
+
+
+def test_phase_cap_fits_the_row():
+    """A phase holds the rows that write ``PHASE_BYTES``, and never fewer
+    than ``PHASE_ROWS``."""
+    assert rs.phase_cap(16) == rs.PHASE_BYTES // 16
+    assert rs.phase_cap(4448) == -(-rs.PHASE_BYTES // 4448) > rs.PHASE_ROWS
+    assert rs.phase_cap(107024) == rs.PHASE_ROWS
+    assert rs.phase_cap(rs.PHASE_BYTES) == rs.PHASE_ROWS
+
+
+def test_phase_table_rejects_a_row_read_and_written_in_a_subround():
+    moves = rs.compact_moves(_edge_table(5, 4)[None], 4)
+    pairs = moves.pairs.clone()
+    pairs[1] = torch.tensor([0 * 4 + 3, -1])   # writes the row 0 -> 1 reads
+    with pytest.raises(ValueError, match="reads a row that it writes"):
+        rs.phase_table_ref(dataclasses.replace(moves, pairs=pairs))
+    pairs[1] = torch.tensor([1 * 4 + 0, -1])   # writes row 0 of 1 twice
+    with pytest.raises(ValueError, match="twice"):
+        rs.phase_table_ref(dataclasses.replace(moves, pairs=pairs))
+
+
+@pytest.mark.parametrize("cap", [1, 2, 3, 7, 100])
+def test_split_phases_cuts_only_large_phases(cap):
+    offs = np.array([0, 1, 9, 10, 30, 31], dtype=np.int64)
+    got = rs.split_phases(offs, cap)
+    assert got[0] == 0 and got[-1] == 31 and (np.diff(got) > 0).all()
+    assert (np.diff(got) <= cap).all()
+    assert set(offs.tolist()) <= set(got.tolist())
+    want = len(offs) - 1 + int(np.maximum(
+        0, -(-np.diff(offs) // cap) - 1).sum())
+    assert len(got) - 1 == want
+
+
+def test_offsets_carry_the_phase_order_and_cut_a_large_phase():
+    """With phases, ``Moves.offsets`` gives the byte offsets in phase order
+    too, and phases cut to at most 2**30 chunks; ``fits_launch`` then
+    checks a row, not a sub-round, for the whole range."""
+    rng, moves = _random_moves(3)
+    moves = dataclasses.replace(moves, phases=rs.phase_table_ref(moves))
+    at = moves.offsets(64)
+    assert torch.equal(at.phase_pairs, at.pairs[moves.phases.order])
+    assert at.phase_offs.tolist() == moves.phases.offs.tolist()
+    assert at.num_phases == moves.phases.count
+    row_at = 16 + 64 * rng.permutation(moves.n * moves.rows)
+    at = moves.offsets(64, row_at)
+    assert torch.equal(at.phase_pairs, at.pairs[moves.phases.order])
+    big = 16 * 2 ** 28                        # 2**28 chunks: 4 moves a step
+    most = int(moves.counts.max())
+    assert most > 4 and int(np.diff(moves.phases.offs).max()) > 4
+    at = moves.offsets(big)
+    assert (np.diff(at.phase_offs.numpy()) <= 4).all()
+    assert at.num_phases > moves.phases.count
+    assert not rs.fits_launch(moves, big, 0, moves.num_subrounds - 1)
+    assert rs.fits_launch(moves, big)
+    assert not rs.fits_launch(dataclasses.replace(moves, phases=None), big)
+    assert not rs.fits_launch(moves, 16 * (2 ** 30 + 1))
+
+
+class _FakeK1:
+    """``permute_rounds``' library on the CPU: its launch applies steps
+    ``[s0, s1)`` of the byte-offset pairs it is handed to the flat buffer,
+    each step's moves one at a time in a random order, and records its
+    arguments. Tensors are found by their address."""
+
+    def __init__(self, tensors, rng):
+        self.by_ptr = {t.data_ptr(): t for t in tensors}
+        self.rng = rng
+        self.calls = []
+
+    def permute_rounds(self, buf, pairs, offs, s0, s1, chunks, bar, stream):
+        flat = self.by_ptr[buf]
+        pairs, offs = self.by_ptr[pairs].numpy(), self.by_ptr[offs].numpy()
+        row = chunks * 16
+        self.calls.append((pairs, offs, s0, s1))
+        for s in range(s0, s1):
+            step = pairs[offs[s]:offs[s + 1]]
+            for i in self.rng.permutation(len(step)):
+                d, r = step[i]
+                flat[d:d + row] = flat[r:r + row] if r >= 0 else 0
+        return 0
+
+
+@pytest.mark.parametrize("span", ["all", "part", "no_phases", "idle"])
+def test_launch_counts_subrounds_and_phases(span):
+    """``launch_rounds`` hands the kernel the phase order over a whole
+    range of moves with phases and the sub-rounds otherwise: the bytes are
+    the sub-rounds' either way, ``subrounds`` grows by ``s1 - s0`` and
+    ``phases`` by the steps the launch ran."""
+    rng, moves = _random_moves(11)
+    moves = dataclasses.replace(moves, phases=rs.phase_table_ref(moves))
+    count = moves.num_subrounds
+    s0, s1 = (2, count - 3) if span == "part" else (0, count)
+    if span == "no_phases":
+        moves = dataclasses.replace(moves, phases=None)
+    if span == "idle":
+        moves = moves.idle()
+    row = 48
+    buf = torch.from_numpy(rng.integers(0, 256, moves.n * moves.rows * row,
+                                        dtype=np.uint8))
+    at = moves.offsets(row)
+    want = rs.permute_rounds_ref(buf.clone(), moves, s0, s1, at=at)
+    got = buf.clone()
+    fake = _FakeK1([got, at.pairs, moves.offs] + (
+        [at.phase_pairs, at.phase_offs] if moves.phases else []), rng)
+    saved = rs._rounds_lib
+    rs._rounds_lib = fake
+    try:
+        before = (rs.rounds_launches, rs.subrounds, rs.phases)
+        rs.launch_rounds(got, moves, s0, s1, at, 0)
+    finally:
+        rs._rounds_lib = saved
+    steps = moves.phases.count if span == "all" else s1 - s0
+    assert (rs.rounds_launches - before[0], rs.subrounds - before[1],
+            rs.phases - before[2]) == (1, s1 - s0, steps)
+    (pairs, offs, p0, p1), = fake.calls
+    assert (p0, p1) == ((0, steps) if span == "all" else (s0, s1))
+    assert len(offs) == (steps + 1 if span == "all" else count + 1)
+    assert torch.equal(got, want)

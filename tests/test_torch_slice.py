@@ -119,7 +119,7 @@ def test_slice_outputs_byte_identical_to_reference(reference):
                                       err_msg=f"own plan, case {CASES[i]}")
         sched = import_schedule(meta[i]["schedule"])
         relay_seen |= sched.num_relay > 0
-        got = broadcast(LoweredPlan(sched, meta[i]["num_groups"], "cpu"), x)
+        got = broadcast(LoweredPlan(sched, meta[i]["num_groups"], x, "cpu"), x)
         np.testing.assert_array_equal(_bytes(got).reshape(want.shape), want,
                                       err_msg=f"imported tables, {CASES[i]}")
         assert ex.verify(x).ok

@@ -18,10 +18,11 @@ three sets of moves of one plan, in turns:
 The first rep of each set is left out and the median of the rest kept
 (CUDA events on a GPU, the host clock on the CPU). Each size prints one
 JSON line: the sets' moves and HBM bytes (a row written a move, a row
-read a move that is no zero write), their median µs, and the picoseconds
-a byte that dropping the relay moves and dropping the others saved
-(``relay_ps_per_byte``, ``other_ps_per_byte``) beside the whole plan's
-(``all_ps_per_byte``). The buffer's contents are not checked: a set of
+read a move that is no zero write), the steps K1 runs each in (on a
+GPU its dependency phases, each set's own), their median µs, and the
+picoseconds a byte that dropping the relay moves and dropping the others
+saved (``relay_ps_per_byte``, ``other_ps_per_byte``) beside the whole
+plan's (``all_ps_per_byte``). The buffer's contents are not checked: a set of
 moves with some dropped delivers a wrong payload.
 """
 
@@ -61,9 +62,11 @@ def relay_mask(pairs: torch.Tensor, rows: int, packets: int) -> np.ndarray:
     return (dst % rows >= packets) | ((src >= 0) & (src % rows >= packets))
 
 
-def keep(moves: rs.Moves, mask: np.ndarray, packets: int) -> rs.Moves:
+def keep(moves: rs.Moves, mask: np.ndarray, packets: int,
+         row_bytes: int) -> rs.Moves:
     """``moves`` with only the pairs in ``mask``, in the same sub-rounds,
-    with their prefix sums counted again."""
+    with their prefix sums, and their phases if they had any (sized for
+    rows of ``row_bytes``), counted again."""
     s = moves.num_subrounds
     sub = np.repeat(np.arange(s), moves.counts)[mask]
     pairs = moves.pairs.cpu()[torch.from_numpy(mask)].contiguous()
@@ -76,15 +79,17 @@ def keep(moves: rs.Moves, mask: np.ndarray, packets: int) -> rs.Moves:
 
     every = np.ones(len(sub), bool)
     counts = np.bincount(sub, minlength=s).astype(np.int64)
-    return dataclasses.replace(
+    kept = dataclasses.replace(
         moves, pairs=pairs.to(moves.device),
         offs=torch.from_numpy(prefix(every)).to(moves.device), counts=counts,
         moves_cum=prefix(every), zeros_cum=prefix(zero),
-        relay_cum=prefix(relay), relay_zeros_cum=prefix(relay & zero))
+        relay_cum=prefix(relay), relay_zeros_cum=prefix(relay & zero),
+        phases=None)
+    return kept if moves.phases is None else rs.with_phases(kept, row_bytes)
 
 
-def variants(moves: rs.Moves, packets: int,
-             rng: np.random.Generator) -> Dict[str, rs.Moves]:
+def variants(moves: rs.Moves, packets: int, rng: np.random.Generator,
+             row_bytes: int) -> Dict[str, rs.Moves]:
     """The three sets of moves: ``all``, ``no_relay``, ``no_other``."""
     relay = relay_mask(moves.pairs, moves.rows, packets)
     other = np.ones(len(relay), bool)
@@ -93,8 +98,9 @@ def variants(moves: rs.Moves, packets: int,
         k = int(relay[lo:hi].sum())
         cand = np.flatnonzero(~relay[lo:hi]) + lo
         other[rng.choice(cand, size=min(k, len(cand)), replace=False)] = False
-    return {"all": moves, "no_relay": keep(moves, ~relay, packets),
-            "no_other": keep(moves, other, packets)}
+    return {"all": moves,
+            "no_relay": keep(moves, ~relay, packets, row_bytes),
+            "no_other": keep(moves, other, packets, row_bytes)}
 
 
 def _timed_us(buf: torch.Tensor, moves: rs.Moves) -> float:
@@ -119,9 +125,9 @@ def measure(model, nbytes: float, dev: torch.device, reps: int,
         device=DeviceConfig(device=dev.type)))
     x = torch.zeros(int(nbytes) // 4)
     lay = runner.packet_layout(x, ex.schedule, ex.num_groups)
-    moves = runner.build_moves(ex.schedule, ex.num_groups, dev)
-    sets = variants(moves, lay.total, rng)
     row = lay.row_bytes
+    moves = runner.build_moves(ex.schedule, ex.num_groups, x, dev)
+    sets = variants(moves, lay.total, rng, row)
     nb = {k: m.moved_bytes(0, m.num_subrounds, row) for k, m in sets.items()}
     buf = runner.pack(x.to(dev), lay, ROOT_NODE, dev)
     got: Dict[str, List[float]] = {k: [] for k in sets}
@@ -141,6 +147,8 @@ def measure(model, nbytes: float, dev: torch.device, reps: int,
             "subrounds": moves.num_subrounds, "row_bytes": row,
             "relay_rows": lay.relay,
             "moves": {k: int(m.moves_cum[-1]) for k, m in sets.items()},
+            "phases": {k: m.phases.count if m.phases else m.num_subrounds
+                       for k, m in sets.items()},
             "bytes": nb, "us_median": med, "us_all_reps": got,
             "relay_ps_per_byte": ps_per_byte("no_relay"),
             "other_ps_per_byte": ps_per_byte("no_other"),

@@ -16,7 +16,8 @@ It reports, as one JSON line on stdout (and in ``--out``):
 
 * ``setup``: the set-up's phases, and ``lowering_s``, the seconds of the
   outermost ``lower.*`` spans, beside the ``executables`` phase that holds
-  them; the warm-up's host seconds by span;
+  them, and ``phase_pass_ms``, each plan's ``lower.phases`` (K1's phase
+  table); the warm-up's host seconds by span;
 * ``windows``: each window's p50, p95, payload rate and the host time of
   ``ExecutablePlan.run`` up to its return (before the synchronize), the
   window's growth of ``runner.unpack_launches`` and
@@ -27,7 +28,10 @@ It reports, as one JSON line on stdout (and in ``--out``):
   ``unpack_rows`` moved a request (``unpack_bytes_by_shape``: in place
   only the tails), and by shape the share of K1's
   ``round_step.moved_bytes`` that moves reading or writing a relay row
-  moved (``round_step.relay_bytes``; ``k1_relay_pct``);
+  moved (``round_step.relay_bytes``; ``k1_relay_pct``); K1's steps over
+  its sub-rounds, ``round_step.phases`` over ``round_step.subrounds``, in
+  the window and by shape (``k1_phase_pct``, ``k1_phase_pct_by_shape``:
+  how far running by dependency phase cuts the grid barriers);
 * ``traced``: each device operation of the traced windows joined to the
   CUDA runtime call that launched it (the profiler's correlation ids) and
   so to the innermost span holding the launch: device ms a request under
@@ -368,6 +372,8 @@ def build(cell, seed: int, device: torch.device) -> dict:
                 esize=esize, mix=mix, bytes_per=bytes_per, setup={
                     "setup_s": clock.total(), "phases": dict(clock.phases),
                     "lowering_s": sum(s.seconds for s in outer),
+                    "phase_pass_ms": [s.seconds * 1e3 for s in recorded
+                                      if s.name == "lower.phases"],
                     "host_s_by_span": dict(by_name),
                     "warmup_requests": sum(s.name == "bcast.run"
                                            for s in recorded)})
@@ -387,7 +393,7 @@ def serve(st: dict, seed: int, seconds: float, device: torch.device
     for req in gen.stream(mix, seed, n, esize):
         ex = st["exes"][(req.root, req.nbytes)]
         k1 = (round_step.moved_bytes, round_step.relay_bytes,
-              runner.unpack_bytes)
+              runner.unpack_bytes, round_step.subrounds, round_step.phases)
         t0 = time.perf_counter()
         y = ex.run(st["pool"][req.nbytes][req.slot])
         t_ret = time.perf_counter()
@@ -399,7 +405,9 @@ def serve(st: dict, seed: int, seconds: float, device: torch.device
                     "t_ret": t_ret, "t1": t1,
                     "moved": round_step.moved_bytes - k1[0],
                     "relay": round_step.relay_bytes - k1[1],
-                    "unpack": runner.unpack_bytes - k1[2]})
+                    "unpack": runner.unpack_bytes - k1[2],
+                    "subrounds": round_step.subrounds - k1[3],
+                    "phases": round_step.phases - k1[4]})
         if t1 >= deadline and (req.index + 1) % block == 0:
             return out
     return out
@@ -443,6 +451,19 @@ def relay_pct(served: List[dict]) -> Dict[str, float]:
         moved[shape] += r["moved"]
         relay[shape] += r["relay"]
     return {k: 100.0 * relay[k] / v for k, v in moved.items() if v}
+
+
+def phase_pct(served: List[dict]) -> Dict[str, float]:
+    """By shape ``root/nbytes``, and over all under ``"all"``: K1's steps
+    over its sub-rounds, %, from ``round_step.phases`` and
+    ``round_step.subrounds``' growth in each request."""
+    steps: Dict[str, int] = collections.Counter()
+    subs: Dict[str, int] = collections.Counter()
+    for r in served:
+        for shape in (f"{r['root']}/{r['nbytes']}", "all"):
+            steps[shape] += r["phases"]
+            subs[shape] += r["subrounds"]
+    return {k: 100.0 * steps[k] / v for k, v in subs.items() if v}
 
 
 def unpack_by_shape(served: List[dict]) -> Dict[str, float]:
@@ -503,6 +524,9 @@ def measure(cell, seed: int, seconds: float, device: torch.device) -> dict:
                    staged_runs=runner.staged_runs - unpack0[3],
                    unpack_bytes_by_shape=unpack_by_shape(served),
                    k1_relay_pct=relay_pct(served))
+        pct = phase_pct(served)
+        row.update(k1_phase_pct=pct.pop("all", None),
+                   k1_phase_pct_by_shape=pct)
         windows.append(row)
         log(f"[window {i}] {json.dumps(row)}")
         if dev is None:
